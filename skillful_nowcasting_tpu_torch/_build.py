@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
-one shared library with a plain C interface, at first use, under
-``build/kernels/`` next to the package. The file name carries a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads the
-cached binary. Pointers and the stream cross the boundary as ``c_void_p``;
-each entry point returns ``cudaGetLastError()`` after its launch.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(Hopper), all at once, and the objects are linked into one shared library
+with a plain C interface, at first use, under ``build/kernels/`` next to the
+package. The file name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached binary. ptxas's
+per-kernel registers, shared memory and spills (``-Xptxas -v``) are kept
+beside it (:func:`ptxas_report`). Pointers and the stream cross the boundary
+as ``c_void_p``; each entry point returns a ``cudaError_t``.
 
 Nothing here runs at import time, so every module imports on a machine
 without ``nvcc`` or a GPU.
@@ -28,17 +30,18 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: argument types, return int (cudaError_t).
 SIGNATURES = {
-    "gru_gates_f32": [_P] * 6 + [_I] * 4 + [_P],
-    "gru_update_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "gru_rollout_workspace_f32": [_I] * 4 + [_P],
+    "gru_rollout_f32": [_P] * 9 + [_I] * 6 + [_P],
     "gblock_conv1_f32": [_P] * 7 + [_I] * 4 + [_P],
     "gblock_conv2_f32": [_P] * 6 + [_I] * 6 + [_P],
 }
@@ -76,19 +79,41 @@ def build() -> Path:
         return target
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # Build to a private name and rename, so concurrent processes never load a
+    # Private names, renamed at the end, so concurrent processes never load a
     # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *sources], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, target)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objects, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            objects.append(obj)
+            procs.append(
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+            )
+        logs = [proc.communicate()[0] for proc in procs]
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        lib = work / target.name
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(lib), *map(str, objects)], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
+        (work / "ptxas.txt").write_text("".join(logs))
+        os.replace(work / "ptxas.txt", target.with_suffix(".ptxas.txt"))
+        os.replace(lib, target)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return target
+
+
+def ptxas_report() -> str:
+    """ptxas's resource lines (registers, shared memory, spills) for the built library."""
+    return build().with_suffix(".ptxas.txt").read_text()
 
 
 def load_library() -> ctypes.CDLL:
@@ -106,10 +131,10 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point ``name`` and raise if its launch was refused."""
+def call(name: str, *args) -> None:
+    """Call entry point ``name`` and raise if it returns a CUDA error."""
     lib = load_library()
     code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.dgmr_cuda_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: {msg} (cudaError {code})")
+        raise RuntimeError(f"{name}: CUDA call failed: {msg} (cudaError {code})")

@@ -1,97 +1,264 @@
-// One eval ConvGRU step for Hopper, in two launches; the host loops over t.
+// Eval ConvGRU rollout for Hopper: one persistent cooperative launch runs
+// all T steps.
 //
 // Replaces the Pallas TPU kernel skillful_nowcasting_tpu/ops/pallas_gru.py:_gru_kernel.
 // That kernel walks a sequential (B, T) grid and keeps h in VMEM scratch for
-// all T steps. Blocks on this card run in parallel and in no order, and step
-// t + 1 needs every neighbour of step t (and, inside a step, conv3(r * h)
-// needs r on a one-pixel halo), so a step is two grid-wide launches:
+// all T steps. Here every step is two convolutions, each followed by an
+// elementwise pass, separated by cooperative_groups grid barriers:
 //
-//   gru_gates:  conv3(h, k_ru) -> r = sigmoid(. + gx_r + b_r), u = sigmoid(. + gx_u + b_u);
-//               writes r * h and u.
-//   gru_update: conv3(r * h, k_c) -> c = relu(. + gx_c + b_c); h' = u * h + (1 - u) * c,
-//               written straight into out[t], which is step t + 1's h.
+//   conv A:  conv3(h, k_ru) in (tile, K-slice) units -> partial sums
+//   gates A: sum the slices; r = sigmoid(. + gx_r + b_r), u = sigmoid(. + gx_u + b_u);
+//            writes r * h and u
+//   conv B:  conv3(r * h, k_c) -> partial sums
+//   gates B: sum the slices; c = relu(. + gx_c + b_c); h' = u * h + (1 - u) * c,
+//            written straight into out[t], which is step t + 1's h.
 //
-// Both are implicit GEMMs (igemm.cuh) with f32 accumulation; the gate math is
-// the epilogue. The hidden weights (k_ru is 3*3*384*768*4 B = 10.6 MB at the
-// Sampler's bottom level) stream through shared memory in K-tiles.
+// conv B needs r on a one-pixel halo and step t + 1 needs all of step t, so a
+// grid of independent blocks needs a barrier after each conv; the gates
+// passes need the other two.
 //
-// What bounds it: at small batch each step re-reads the hidden weights from
-// L2/HBM and the pixel count per level is small (M = B*64 at 8x8), so few
-// blocks run and each step is latency- and launch-bound. Keeping h on chip
-// across steps (a persistent or cluster kernel), wgmma and CUDA graphs over
-// the step loop are later work.
+// What bounds it on an H100: the work is arithmetic (2 * M * 9C * 3C FLOPs a
+// step, 18.3 GFLOP over 18 steps at every Sampler level), but each conv is a
+// small GEMM: at the 8x8 level M = B * 64 = 128 pixels, so whole output tiles
+// give 24 (conv A) and 12 (conv B) blocks for 132 SMs, each walking
+// K = 9C = 3456. Run as 2 * T launches of such grids, a rollout is bound by
+// latency. The design:
+// - one launch per rollout; the grid is as many blocks as fit on the card
+//   at once (occupancy x SMs), and each loops over a phase's work units;
+// - split-K fills the card: a conv's (tile, K-slice) units number about the
+//   grid, and each writes its partial tile to scratch (L2-resident). The
+//   gates pass sums the slices in slice order, four channels a thread, with
+//   coalesced loads spread over the whole grid. Fixed order, no atomics: the
+//   same inputs give the same bits;
+// - the shared 3xTF32 tensor-core mainloop of igemm.cuh (64 x 64 or 64 x 48
+//   tiles on 4 warps, 3-stage cp.async ring, zero-filled halo taps);
+// - the hidden weights (15.9 MB at the 8x8 level) and h stay in the 50 MB L2
+//   across steps; gx[t + 1] is prefetched to L2 during step t's conv B.
+// Data written inside the kernel (out, r * h, u, partials) is read through
+// L2 only (cp.async.cg, __ldcg), never through the non-coherent L1.
+
+#include <cooperative_groups.h>
 
 #include "igemm.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace dgmr {
 
-__global__ void __launch_bounds__(THREADS)
-gru_gates_kernel(const float* __restrict__ h, const float* __restrict__ k_ru,
-                 const float* __restrict__ gx, const float* __restrict__ bias,
-                 float* __restrict__ rh, float* __restrict__ u, int B, int H, int W, int C) {
-  __shared__ Tile s;
-  const int M = B * H * W;
-  const int N2 = 2 * C;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  RowCoords rc;
-  row_coords(rc, m0, M, H, W);
-  float acc[4][4] = {};
-  conv_mainloop<3, false>(acc, s, rc, h, H, W, C, k_ru, N2, n0, nullptr, nullptr);
+// 64 x 64 tiles where 64 divides both convs' outputs (2C and C), 64 x 48
+// otherwise: every Sampler level's C (384, 192, 96, 48) is a multiple of 48,
+// so no tile column is wasted there.
+using Gru64 = TileCfg<64, 64, 2, 2>;
+using Gru48 = TileCfg<64, 48, 2, 2>;
+constexpr int kMaxSplit = 32;      // K-slices per tile, at most
+constexpr int kMinSliceTiles = 3;  // K-tiles per slice, at least (fills the ring)
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+struct GruArgs {
+  const float* gx;    // (gx_steps, B, H, W, 3C)
+  const float* h0;    // (B, H, W, C)
+  const float* k_ru;  // (3, 3, C, 2C)
+  const float* k_c;   // (3, 3, C, C)
+  const float* bias;  // (3C,)
+  float* out;         // (T, B, H, W, C)
+  float* rh;          // scratch (B, H, W, C)
+  float* u;           // scratch (B, H, W, C)
+  float* part;        // scratch (split, B * H * W, Nout): one partial sum per K-slice
+  int B, H, W, C, T, gx_steps;
+  int split_a, split_b;
+};
+
+// One conv: units (tile, slice) strided over the grid; slice s of out[m][n]
+// goes to part[s][m][n].
+template <class Cfg, int VEC>
+__device__ __forceinline__ void gru_conv(float* smem, const ConvIn& op, int M, int split,
+                                         float* part) {
+  const int m_tiles = cdiv(M, Cfg::BM);
+  const int tiles = m_tiles * cdiv(op.Nout, Cfg::BN);
+  const int k_tiles = cdiv(9 * op.Cin, Cfg::BK);
+  for (int unit = blockIdx.x; unit < tiles * split; unit += gridDim.x) {
+    const int tile = unit / split;
+    const int slice = unit - tile * split;
+    const int m0 = (tile % m_tiles) * Cfg::BM;
+    const int n0 = (tile / m_tiles) * Cfg::BN;
+    float acc[Cfg::MT][Cfg::NT][4] = {};
+    conv_tile<Cfg, 3, VEC, false>(acc, smem, op, M, m0, n0, slice * k_tiles / split,
+                                  (slice + 1) * k_tiles / split);
+    float* dst = part + (size_t)slice * M * op.Nout;
+    epilogue<Cfg>(
+        acc, m0, n0, [](int, int, int) {},
+        [&](int, int m, int n, float v) {
+          if (m < M && n < op.Nout) __stcg(dst + (size_t)m * op.Nout + n, v);
+        });
+  }
+}
+
+// Sum of the split partials of out[m][n .. n + V) in slice order.
+template <int V>
+__device__ __forceinline__ void slice_sum(float (&v)[V], const float* part, int split,
+                                          size_t plane, size_t o) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  for (int e = 0; e < V; ++e) v[e] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < split; ++s) {
+    const float* src = part + s * plane + o;
+    if constexpr (V == 4) {
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(src));
+      v[0] += p.x;
+      v[1] += p.y;
+      v[2] += p.z;
+      v[3] += p.w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N2) continue;
-      // gx and bias channel order: read [0, C), update [C, 2C), candidate [2C, 3C).
-      const float pre = acc[i][j] + gx[(size_t)m * 3 * C + n] + bias[n];
-      const float g = 1.f / (1.f + expf(-pre));
-      if (n < C) {
-        rh[(size_t)m * C + n] = g * h[(size_t)m * C + n];
-      } else {
-        u[(size_t)m * C + (n - C)] = g;
-      }
+      for (int e = 0; e < V; ++e) v[e] += __ldcg(src + e);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-gru_update_kernel(const float* __restrict__ rh, const float* __restrict__ k_c,
-                  const float* __restrict__ gx, const float* __restrict__ bias,
-                  const float* __restrict__ u, const float* __restrict__ h,
-                  float* __restrict__ h_new, int B, int H, int W, int C) {
-  __shared__ Tile s;
-  const int M = B * H * W;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  RowCoords rc;
-  row_coords(rc, m0, M, H, W);
-  float acc[4][4] = {};
-  conv_mainloop<3, false>(acc, s, rc, rh, H, W, C, k_c, C, n0, nullptr, nullptr);
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+// Load V floats at p (16-byte aligned when V == 4); L2 only when written in-kernel.
+template <int V, bool L2_ONLY>
+__device__ __forceinline__ void load_v(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 q = L2_ONLY ? __ldcg(reinterpret_cast<const float4*>(p))
+                             : *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= C) continue;
-      const float pre = acc[i][j] + gx[(size_t)m * 3 * C + 2 * C + n] + bias[2 * C + n];
-      const float cand = fmaxf(pre, 0.f);
-      const size_t o = (size_t)m * C + n;
-      const float uu = u[o];
-      h_new[o] = uu * h[o] + (1.f - uu) * cand;
-    }
+    for (int e = 0; e < V; ++e) v[e] = L2_ONLY ? __ldcg(p + e) : p[e];
   }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = v[e];
+  }
+}
+
+// V channels a thread (4 when C % 4 == 0, so a group never straddles a gate).
+template <class Cfg, int VEC>
+__global__ void __launch_bounds__(Cfg::THREADS) gru_rollout_kernel(GruArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int M = p.B * p.H * p.W;
+  const int C = p.C;
+  const size_t mc = (size_t)M * C;
+  const size_t gx_step = (size_t)M * 3 * C;
+  const int groups = C / VEC;  // channel groups per gate
+  const size_t first = (size_t)blockIdx.x * Cfg::THREADS + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * Cfg::THREADS;
+
+  for (int t = 0; t < p.T; ++t) {
+    const float* h = t == 0 ? p.h0 : p.out + (size_t)(t - 1) * mc;
+    const float* gx = p.gx + (p.gx_steps == 1 ? 0 : (size_t)t * gx_step);
+    float* h_new = p.out + (size_t)t * mc;
+
+    gru_conv<Cfg, VEC>(smem, ConvIn{h, p.k_ru, nullptr, nullptr, p.H, p.W, C, 2 * C}, M, p.split_a,
+                  p.part);
+    grid.sync();
+
+    // gx and bias channel order: read [0, C), update [C, 2C), candidate [2C, 3C).
+    for (size_t i = first; i < (size_t)M * 2 * groups; i += stride) {
+      const int m = static_cast<int>(i / (2 * groups));
+      const int n = static_cast<int>(i - (size_t)m * 2 * groups) * VEC;
+      float acc[VEC], g[VEC], b[VEC], hv[VEC];
+      slice_sum<VEC>(acc, p.part, p.split_a, (size_t)M * 2 * C, (size_t)m * 2 * C + n);
+      load_v<VEC, false>(g, gx + (size_t)m * 3 * C + n);
+      load_v<VEC, false>(b, p.bias + n);
+      const bool read = n < C;
+      if (read) load_v<VEC, true>(hv, h + (size_t)m * C + n);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float gate = 1.f / (1.f + expf(-(acc[e] + g[e] + b[e])));
+        acc[e] = read ? gate * hv[e] : gate;
+      }
+      store_v<VEC>(read ? p.rh + (size_t)m * C + n : p.u + (size_t)m * C + (n - C), acc);
+    }
+    grid.sync();
+
+    if (p.gx_steps > 1 && t + 1 < p.T) {  // warm L2 with the next step's gx
+      const char* next = reinterpret_cast<const char*>(gx + gx_step);
+      for (size_t l = first; l < gx_step * sizeof(float) / 128; l += stride)
+        prefetch_l2(next + l * 128);
+    }
+    gru_conv<Cfg, VEC>(smem, ConvIn{p.rh, p.k_c, nullptr, nullptr, p.H, p.W, C, C}, M, p.split_b,
+                  p.part);
+    grid.sync();
+
+    for (size_t i = first; i < (size_t)M * groups; i += stride) {
+      const int m = static_cast<int>(i / groups);
+      const int n = static_cast<int>(i - (size_t)m * groups) * VEC;
+      const size_t o = (size_t)m * C + n;
+      float acc[VEC], g[VEC], b[VEC], hv[VEC], uv[VEC];
+      slice_sum<VEC>(acc, p.part, p.split_b, mc, o);
+      load_v<VEC, false>(g, gx + (size_t)m * 3 * C + 2 * C + n);
+      load_v<VEC, false>(b, p.bias + 2 * C + n);
+      load_v<VEC, true>(hv, h + o);
+      load_v<VEC, true>(uv, p.u + o);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float cand = fmaxf(acc[e] + g[e] + b[e], 0.f);
+        acc[e] = uv[e] * hv[e] + (1.f - uv[e]) * cand;
+      }
+      store_v<VEC>(h_new + o, acc);
+    }
+    grid.sync();
+  }
+}
+
+struct GruPlan {
+  const void* kernel;
+  int grid, threads, smem;
+  int split_a, split_b;
+  long long part_floats;
+};
+
+// Grid and split-K plan for one level; deterministic for a given card.
+template <class Cfg, int VEC>
+cudaError_t gru_plan(int B, int H, int W, int C, GruPlan* plan) {
+  int dev = 0;
+  int coop = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaFuncSetAttribute(gru_rollout_kernel<Cfg, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_rollout_kernel<Cfg, VEC>,
+                                                        Cfg::THREADS, Cfg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  plan->grid = per_sm * sm_count();
+  if (plan->grid <= 0) return cudaErrorInvalidConfiguration;
+  plan->kernel = reinterpret_cast<const void*>(gru_rollout_kernel<Cfg, VEC>);
+  plan->threads = Cfg::THREADS;
+  plan->smem = Cfg::SMEM_BYTES;
+  const int M = B * H * W;
+  const int k_tiles = cdiv(9 * C, Cfg::BK);
+  auto split_for = [&](int nout) {
+    int s = plan->grid / (cdiv(M, Cfg::BM) * cdiv(nout, Cfg::BN));
+    s = s < kMaxSplit ? s : kMaxSplit;
+    const int by_depth = k_tiles / kMinSliceTiles;
+    s = s < by_depth ? s : by_depth;
+    return s > 1 ? s : 1;
+  };
+  plan->split_a = split_for(2 * C);
+  plan->split_b = split_for(C);
+  const long long pa = (long long)plan->split_a * M * 2 * C;
+  const long long pb = (long long)plan->split_b * M * C;
+  plan->part_floats = pa > pb ? pa : pb;
+  return cudaSuccess;
+}
+
+cudaError_t gru_plan(int B, int H, int W, int C, bool vec, GruPlan* plan) {
+  if (C % 64 == 0) return vec ? gru_plan<Gru64, 4>(B, H, W, C, plan) : gru_plan<Gru64, 1>(B, H, W, C, plan);
+  return vec ? gru_plan<Gru48, 4>(B, H, W, C, plan) : gru_plan<Gru48, 1>(B, H, W, C, plan);
 }
 
 }  // namespace dgmr
@@ -102,21 +269,35 @@ const char* dgmr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each entry point launches one kernel on `stream` and returns cudaGetLastError().
-int gru_gates_f32(const float* h, const float* k_ru, const float* gx, const float* bias,
-                  float* rh, float* u, int B, int H, int W, int C, void* stream) {
-  const dim3 grid = dgmr::conv_grid(B * H * W, 2 * C);
-  dgmr::gru_gates_kernel<<<grid, dgmr::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      h, k_ru, gx, bias, rh, u, B, H, W, C);
-  return static_cast<int>(cudaGetLastError());
+// Floats of partial-sum scratch the rollout needs at this level, into
+// *floats. Covers both load paths, so it holds whichever the launch picks.
+int gru_rollout_workspace_f32(int B, int H, int W, int C, long long* floats) {
+  dgmr::GruPlan p4{}, p1{};
+  cudaError_t err = dgmr::gru_plan(B, H, W, C, true, &p4);
+  if (err == cudaSuccess) err = dgmr::gru_plan(B, H, W, C, false, &p1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *floats = p4.part_floats > p1.part_floats ? p4.part_floats : p1.part_floats;
+  return 0;
 }
 
-int gru_update_f32(const float* rh, const float* k_c, const float* gx, const float* bias,
-                   const float* u, const float* h, float* h_new, int B, int H, int W, int C,
-                   void* stream) {
-  const dim3 grid = dgmr::conv_grid(B * H * W, C);
-  dgmr::gru_update_kernel<<<grid, dgmr::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rh, k_c, gx, bias, u, h, h_new, B, H, W, C);
+// The whole rollout, one cooperative launch on `stream`; returns its cudaError_t.
+int gru_rollout_f32(const float* gx, const float* h0, const float* k_ru, const float* k_c,
+                    const float* bias, float* out, float* rh, float* u, float* part, int B,
+                    int H, int W, int C, int T, int gx_steps, void* stream) {
+  dgmr::GruArgs a{gx, h0, k_ru, k_c, bias, out, rh, u, part, B, H, W, C, T, gx_steps, 0, 0};
+  const bool vec = C % 4 == 0 && dgmr::aligned16(gx) && dgmr::aligned16(h0) &&
+                   dgmr::aligned16(k_ru) && dgmr::aligned16(k_c) && dgmr::aligned16(bias) &&
+                   dgmr::aligned16(out) && dgmr::aligned16(rh) && dgmr::aligned16(u) &&
+                   dgmr::aligned16(part);
+  dgmr::GruPlan plan{};
+  cudaError_t err = dgmr::gru_plan(B, H, W, C, vec, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.split_a = plan.split_a;
+  a.split_b = plan.split_b;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(plan.kernel, dim3(plan.grid), dim3(plan.threads), args,
+                                    plan.smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

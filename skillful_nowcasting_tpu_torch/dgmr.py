@@ -5,6 +5,10 @@ Constructor fields mirror the reference hyperparameters (the hub
 keys: ``conditioning_stack.*``, ``latent_stack.*``, ``sampler.*``. The
 discriminator and training are not ported yet, so the model runs in eval
 mode only (call ``.eval()``; train mode raises ``NotImplementedError``).
+
+The model lives on the GPU unless the caller asks for the CPU with
+``device="cpu"``; without CUDA the default raises instead of running on the
+CPU. ``device`` is not a hyperparameter and stays out of ``config``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ class DGMR(nn.Module):
     """Deep Generative Model of Radar, generator half.
 
     ``forward`` maps context frames ``(B, 4, C, H, W)`` to one nowcast sample
-    ``(B, forecast_steps, C, H, W)``.
+    ``(B, forecast_steps, C, H, W)``. Parameters and buffers are built on
+    ``device`` (default ``"cuda"``).
     """
 
     def __init__(
@@ -60,7 +65,14 @@ class DGMR(nn.Module):
         context_channels: int = 384,
         generation_steps: int = 6,
         precip_weight_cap: float = 24.0,
+        device: torch.device | str = "cuda",
     ):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"DGMR(device={str(device)!r}): CUDA is not available; pass "
+                "device='cpu' to build the model on the CPU"
+            )
         super().__init__()
         self.forecast_steps = forecast_steps
         self.input_channels = input_channels
@@ -92,6 +104,7 @@ class DGMR(nn.Module):
             latent_channels=latent_channels,
             context_channels=context_channels,
         )
+        self.to(device)
 
     def forward(
         self,

@@ -27,6 +27,8 @@ def make_generate(
     ``shared_context``, ``chunk`` otherwise): the batch is split into chunks
     that all reuse each sample's latent, so the result equals the unchunked
     one. ``None`` runs the whole batch at once. The model must be in eval mode.
+    ``x`` is moved to the model's device, so a CPU batch runs on the card of
+    a model built with the default device.
     """
     n = num_samples if num_samples is not None else model.num_samples
     if microbatch is None:
@@ -41,6 +43,7 @@ def make_generate(
 
     @torch.inference_mode()
     def generate(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x.to(next(model.parameters()).device)
         z = draw_latents(model.latent_stack.shape, n, generator, x)
         chunks = [x] if cap is None else x.split(cap)
         return torch.cat([one_chunk(xc, z) for xc in chunks], dim=1)

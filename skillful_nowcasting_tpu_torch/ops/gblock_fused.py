@@ -8,8 +8,8 @@ GBlock is
 
 with BN folded into the affines and spectral norm into the kernels. The public
 function keeps the JAX layouts (NHWC activations, HWIO kernels). On a CUDA
-tensor it launches the two kernels of ``csrc/gblock_fused.cu``; on a CPU
-tensor the plain version runs.
+tensor it launches the two tensor-core kernels of ``csrc/gblock_fused.cu``;
+on a CPU tensor the plain version runs.
 """
 
 from __future__ import annotations
@@ -116,13 +116,13 @@ def gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
     out = torch.empty((n, h, w, cout), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        _build.launch(
+        _build.call(
             "gblock_conv1_f32",
             _ptr(x), _ptr(k1), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
             n, h, w, cin, stream,
         )
         gblock_fused.launches += 1
-        _build.launch(
+        _build.call(
             "gblock_conv2_f32",
             _ptr(mid), _ptr(x), _ptr(k2), _ptr(ksc), _ptr(b_out), _ptr(out), int(use_sc_conv),
             n, h, w, cin, cout, stream,

@@ -10,10 +10,10 @@ Each step computes
     c  = relu(gx_c + conv3(r * h, k_c) + b_c)
     h' = u * h + (1 - u) * c
 
-and all ``T`` states are returned. On a CUDA tensor the host loops over the
-steps and launches the two kernels of ``csrc/gru_rollout.cu`` per step (see
-the note there for the design and what bounds it); on a CPU tensor the plain
-version runs.
+and all ``T`` states are returned. On a CUDA tensor one persistent
+cooperative launch of ``csrc/gru_rollout.cu`` runs every step (see the note
+there for the design and what bounds it); on a CPU tensor the plain version
+runs.
 """
 
 from __future__ import annotations
@@ -127,26 +127,22 @@ def convgru_rollout(
         raise ValueError("convgru_rollout: gx_seq is too large for 32-bit indexing")
 
     out = torch.empty((t, b, h, w, c), device=gx_seq.device, dtype=torch.float32)
-    rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
-    u = torch.empty_like(rh)
+    if t == 0:
+        return out
     with torch.cuda.device(gx_seq.device):
+        floats = ctypes.c_longlong()
+        _build.call("gru_rollout_workspace_f32", b, h, w, c, ctypes.byref(floats))
+        rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
+        u = torch.empty_like(rh)
+        part = torch.empty(floats.value, device=gx_seq.device, dtype=torch.float32)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        h_prev = h0
-        for step in range(t):
-            gx_t = gx_seq[0 if static else step]
-            _build.launch(
-                "gru_gates_f32",
-                _ptr(h_prev), _ptr(k_ru), _ptr(gx_t), _ptr(bias), _ptr(rh), _ptr(u),
-                b, h, w, c, stream,
-            )
-            convgru_rollout.launches += 1
-            _build.launch(
-                "gru_update_f32",
-                _ptr(rh), _ptr(k_c), _ptr(gx_t), _ptr(bias), _ptr(u), _ptr(h_prev), _ptr(out[step]),
-                b, h, w, c, stream,
-            )
-            convgru_rollout.launches += 1
-            h_prev = out[step]
+        _build.call(
+            "gru_rollout_f32",
+            _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
+            _ptr(rh), _ptr(u), _ptr(part),
+            b, h, w, c, t, gx_seq.shape[0], stream,
+        )
+        convgru_rollout.launches += 1
     return out
 
 

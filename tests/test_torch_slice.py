@@ -36,7 +36,7 @@ def jax_model_and_variables():
 
 @pytest.fixture(scope="module")
 def port_model(jax_model_and_variables):
-    model = DGMR(**TINY)
+    model = DGMR(**TINY, device="cpu")
     dropped = load_variables(model, jax_model_and_variables[1])
     assert dropped > 0  # the whole-DGMR tree carries the discriminator
     return model.eval()
@@ -55,12 +55,12 @@ def test_state_dict_from_variables_equals_export(jax_model_and_variables):
 def test_load_variables_drops_only_discriminator_keys(jax_model_and_variables):
     variables = jax_model_and_variables[1]
     n_disc = sum(k.startswith("discriminator.") for k in export_torch_state_dict(variables))
-    assert load_variables(DGMR(**TINY), variables) == n_disc > 0
+    assert load_variables(DGMR(**TINY, device="cpu"), variables) == n_disc > 0
 
     stray = {"bias": np.zeros(2, np.float32)}
     extra = dict(variables, params=dict(variables["params"], stray=stray))
     with pytest.raises(RuntimeError, match="stray"):
-        load_variables(DGMR(**TINY), extra)
+        load_variables(DGMR(**TINY, device="cpu"), extra)
 
 
 def test_generator_matches_jax_with_fixed_z(jax_model_and_variables, port_model):
@@ -112,7 +112,19 @@ def test_make_generate_shapes_seeds_and_shared_context(port_model):
 
 def test_config_and_train_mode(port_model):
     assert dgmr.HPARAM_FIELDS == jdgmr.HPARAM_FIELDS
-    model = DGMR(**TINY)
+    model = DGMR(**TINY, device="cpu")
     assert model.config == {k: getattr(JaxDGMR(**TINY), k) for k in jdgmr.HPARAM_FIELDS}
+    assert "device" not in model.config
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert {b.device.type for b in model.buffers()} == {"cpu"}
     with pytest.raises(NotImplementedError):
         model.train()(torch.zeros(1, 4, 1, 64, 64))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without CUDA the default device raises and names the CPU opt-in; it never runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DGMR(**TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DGMR(**TINY, device=torch.device("cuda", 0))
