@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eval nowcast path once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast and training paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -19,6 +19,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (kernels) and on the CPU (plain versions): max-abs <= 1e-3.
 6. Where the time goes: one per-sample request with every layer bracketed by
    ``torch.cuda.synchronize()``, each layer's share of that request's wall.
+7. Training at full width: the paper config with seeded random weights
+   (``random_fill`` + ``desaturate_discriminator``), B=2 random context and
+   target sequences, ``init_train_state``, 3 ``make_train_step`` steps
+   (defaults: logging forward, rollout recompute) and 1 ``make_eval_step``.
+   Metrics finite, G and D parameters moved, every BN running statistic and
+   every used SN vector advanced, no kernel launch in a train step (train
+   mode takes the plain paths, as in JAX), and exactly 4 / 8 launches per
+   generator forward in the eval step. Prints seconds per step, a
+   synchronized D / G / logging split of the last step and peak memory, then
+   the time and peak memory of one more step without the rollout recompute.
+8. Training parity, card vs CPU, at the CPU tests' tiny config: the same
+   weights, the same explicit draws, SGD, one train step each. Losses,
+   gradients and post-step parameters agree to max-abs <= 1e-3 of each
+   tensor's max-abs (floored at 1e-6 of its group's largest: a conv bias in
+   front of a train-mode BatchNorm has a true gradient of 0) in float64;
+   the float32 figure is printed beside it.
 
 Any failure exits non-zero without the final line. The last two lines are a
 JSON object of per-kernel results and ``{"ok": true, "device": {...}}``.
@@ -27,13 +43,18 @@ JSON object of per-kernel results and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 
 KERNEL_TOL = 1e-4
 SLICE_TOL = 1e-3
+TRAIN_TOL = 1e-3
 REQUESTS = 3
+TRAIN_STEPS = 3
+TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
+            generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
 # Published H100 SXM peaks (dense). 3xTF32 does three TF32 products per f32 product.
 PEAK_3XTF32 = 495e12 / 3
 PEAK_F32 = 67e12
@@ -136,6 +157,200 @@ def layer_times(torch, model, x, card: str) -> None:
     for name, sec in totals.items():
         print(f"layer {name}: {1e3 * sec:.3f} ms, {100 * sec / wall:.1f}% of the synchronized wall")
     print(f"layer wall: {1e3 * wall:.3f} ms on {card}")
+
+
+def phase_split(torch, training, run_step) -> dict:
+    """Run one train step with a synchronize after each optimizer update; seconds per phase.
+
+    The step applies D, D, then G updates; the logging forward follows.
+    """
+    marks = []
+    apply = training._apply
+
+    def timed_apply(*args):
+        apply(*args)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    training._apply = timed_apply
+    try:
+        run_step()
+        torch.cuda.synchronize()
+    finally:
+        training._apply = apply
+    end = time.perf_counter()
+    return {"d_phase": marks[1] - t0, "g_phase": marks[2] - marks[1],
+            "logging_forward": end - marks[2], "step": end - t0}
+
+
+def unused_shortcuts(model) -> set:
+    """The SN 1x1 shortcut convs that the reference builds but never applies (never advance)."""
+    from skillful_nowcasting_tpu_torch.models.common import DBlock, GBlock
+
+    out = set()
+    for name, mod in model.named_modules():
+        conv = getattr(mod, "conv_1x1", None)
+        if isinstance(mod, GBlock) and conv.in_channels == conv.out_channels:
+            out.add(f"{name}.conv_1x1")
+        if isinstance(mod, DBlock) and not mod.use_sc_conv:
+            out.add(f"{name}.conv_1x1")
+    return out
+
+
+def train_full_width(torch, dev, card, launch_counters) -> dict:
+    """Phase 7: 3 train steps and 1 eval step of the paper config at B=2 on the card."""
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    model = random_fill(DGMR(), torch.Generator().manual_seed(10))
+    training.desaturate_discriminator(model)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand((2, 4, 1, model.output_shape, model.output_shape), generator=gen)
+    y = torch.rand((2, model.forecast_steps, 1, model.output_shape, model.output_shape),
+                   generator=gen)
+    state = training.init_train_state(model)
+    step = training.make_train_step(model)
+    g_params, d_params = training.split_params(model)
+    params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    buffers0 = {k: b.clone() for k, b in model.named_buffers()}
+
+    for counter in launch_counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    seconds, split = [], None
+    for i in range(TRAIN_STEPS):
+        draw = torch.Generator().manual_seed(200 + i)
+        if i == TRAIN_STEPS - 1:
+            holder = {}
+            split = phase_split(torch, training,
+                                lambda: holder.update(m=step(state, x, y, draw)))
+            metrics = holder["m"]
+            seconds.append(split["step"])
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, x, y, draw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        values = {k: v.item() for k, v in metrics.items()}
+        print(f"train step {i + 1}: {json.dumps(values)}")
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"train step {i + 1}: non-finite metrics {values}")
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = {c.__name__: c.launches for c in launch_counters}
+    print(f"train launches over {TRAIN_STEPS} steps: {train_launches} (expected 0 each)")
+    if any(train_launches.values()):
+        fail(f"a train step launched a kernel: {train_launches}")
+
+    with torch.no_grad():
+        for group, params in (("G", g_params), ("D", d_params)):
+            moved = sum(int(not torch.equal(p, params0[k])) for k, p in params.items())
+            print(f"train: {moved} of {len(params)} {group} parameter tensors moved")
+            if moved == 0:
+                fail(f"no {group} parameter moved")
+        # Unused shortcut convs never advance; the ``u`` of a one-output layer is always 1.
+        skip = unused_shortcuts(model)
+        stale = [k for k, b in model.named_buffers()
+                 if not k.endswith("num_batches_tracked") and b.numel() > 1
+                 and not any(k.startswith(s + ".") for s in skip)
+                 and torch.equal(b, buffers0[k])]
+        tracked = [k for k in buffers0 if not k.endswith("num_batches_tracked")]
+        advanced = sum(int(not torch.equal(buffers0[k], model.get_buffer(k))) for k in tracked)
+        print(f"train: {advanced} of {len(tracked)} BN/SN buffers advanced "
+              f"({len(skip)} unused shortcut convs and the heads' 1-element u keep theirs)")
+        if stale:
+            fail(f"BN/SN buffers did not advance: {stale[:5]}")
+
+    for counter in launch_counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = training.make_eval_step(model)(state, x, y, torch.Generator().manual_seed(300))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = {c.__name__: c.launches for c in launch_counters}
+    forwards = 2 + model.generation_steps
+    expected = {"convgru_rollout": 4 * forwards, "gblock_fused": 8 * forwards}
+    print(f"eval step: {json.dumps({k: v.item() for k, v in val.items()})}, "
+          f"{eval_s:.4f} s, launches {eval_launches}, expected {expected}")
+    if eval_launches != expected:
+        fail(f"the eval step's kernel launches {eval_launches} differ from {expected}")
+    if not all(math.isfinite(v.item()) for v in val.values()):
+        fail(f"eval step: non-finite metrics {val}")
+
+    print(f"train: seconds per step {[round(s, 4) for s in seconds]} (step 1 is the warm-up), "
+          f"B=2 at {model.output_shape}^2, {model.forecast_steps} steps, "
+          f"generation_steps {model.generation_steps}, on {card}")
+    print(f"train split of step {TRAIN_STEPS} (synchronized): D phase {split['d_phase']:.4f} s, "
+          f"G phase {split['g_phase']:.4f} s, logging forward {split['logging_forward']:.4f} s")
+    print(f"train: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated) on {card}")
+
+    # One more step without the rollout recompute, for its time and memory.
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = training.make_train_step(model, rollout_remat=False)(
+        state, x, y, torch.Generator().manual_seed(400))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not all(math.isfinite(v.item()) for v in metrics.values()):
+        fail(f"train step without recompute: non-finite metrics {metrics}")
+    print(f"train without rollout recompute: {plain_s:.4f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
+    return {"train_step": train_launches, "eval_step": eval_launches}
+
+
+def train_parity(torch, dev) -> None:
+    """Phase 8: one tiny train step on the card and on the CPU, same weights and draws, SGD."""
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    base = random_fill(DGMR(**TINY, device="cpu"), torch.Generator().manual_seed(20))
+    training.desaturate_discriminator(base)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.rand((2, 4, 1, 64, 64), generator=gen)
+    y = torch.rand((2, 2, 1, 64, 64), generator=gen)
+    draws = training.draw_step(base, 6, torch.Generator().manual_seed(22))
+
+    def one_step(device, dtype):
+        model = DGMR(**TINY, device=device)
+        model.load_state_dict(base.state_dict())
+        model.to(dtype)
+        g, d = training.split_params(model)
+        state = training.init_train_state(
+            model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
+        m = training.make_train_step(model, return_grads=True)(
+            state, x.to(dtype), y.to(dtype), draws=draws)
+        cpu = lambda v: v.detach().to("cpu", torch.float64)  # noqa: E731
+        return {
+            "losses": {k: cpu(v).reshape(1) for k, v in m.items() if k.startswith("train/")},
+            "g grads": {k: cpu(v) for k, v in m["g_grads"].items()},
+            "d grads": {k: cpu(v) for k, v in m["d_grads"].items()},
+            "params": {k: cpu(p) for k, p in model.named_parameters()},
+        }
+
+    def worst(got, want):
+        top = max(v.abs().max().item() for v in want.values())
+        return max(
+            ((got[k] - w).abs().max().item() / max(w.abs().max().item(), 1e-6 * top), k)
+            for k, w in want.items()
+        )
+
+    cpu_steps = {}
+    for dtype in (torch.float64, torch.float32):
+        card, cpu_steps[dtype] = one_step(dev, dtype), one_step("cpu", dtype)
+        worst_all = max((worst(card[g], cpu_steps[dtype][g]) + (g,)) for g in card)
+        print(f"train parity {str(dtype)[6:]} (card vs CPU, one tiny SGD step): worst "
+              f"{worst_all[0]:.3e} of the tensor's max-abs at {worst_all[2]} {worst_all[1]}")
+        if dtype == torch.float64 and not worst_all[0] <= TRAIN_TOL:
+            fail(f"card and CPU train steps differ by {worst_all[0]} > {TRAIN_TOL}")
+    # What f32 rounding alone does to one step: the CPU's f32 step against its f64 one.
+    f32, f64 = cpu_steps[torch.float32], cpu_steps[torch.float64]
+    for group in f64:
+        top = worst(f32[group], f64[group])
+        print(f"train rounding (CPU float32 vs float64), {group}: worst {top[0]:.3e} at {top[1]}")
 
 
 def main() -> None:
@@ -306,6 +521,12 @@ def main() -> None:
 
     # 6. Where the time goes.
     layer_times(torch, model, x.to(dev), card)
+    del model, cpu_model, generate
+    torch.cuda.empty_cache()
+
+    # 7. Training at full width; 8. training parity, card vs CPU.
+    by_path = train_full_width(torch, dev, card, (convgru_rollout, gblock_fused))
+    train_parity(torch, dev)
 
     sources = {
         "convgru_rollout": ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
@@ -315,7 +536,9 @@ def main() -> None:
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], **results[name],
+         "launches_by_path": {"serve": launches[name], "train_step": by_path["train_step"][name],
+                              "eval_step": by_path["eval_step"][name]}}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

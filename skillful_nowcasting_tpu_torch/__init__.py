@@ -7,9 +7,12 @@ the reference torch state-dict schema. It imports neither JAX nor the JAX
 package.
 
 Ported so far: the eval nowcast path (``inference.make_generate`` ->
-``DGMR.forward`` / ``generate_ensemble``). Both TPU kernels of that path have
-hand-written CUDA counterparts for Hopper in ``csrc/``, built on first use;
-CPU tensors take their plain PyTorch versions, CUDA tensors the kernels.
+``DGMR.forward`` / ``generate_ensemble``) and the GAN training path
+(``training.make_train_step`` / ``make_eval_step``, with the discriminators
+and train-mode BatchNorm / spectral norm). Both TPU kernels of the eval path
+have hand-written CUDA counterparts for Hopper in ``csrc/``, built on first
+use; CPU tensors take their plain PyTorch versions, CUDA tensors the kernels.
+Train mode runs plain PyTorch, as the JAX package trains without its kernels.
 """
 
 from .dgmr import DGMR

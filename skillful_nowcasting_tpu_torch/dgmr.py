@@ -1,10 +1,11 @@
-"""DGMR: the generator half of the top-level model (port of ``skillful_nowcasting_tpu/dgmr.py``).
+"""DGMR: the top-level model (port of ``skillful_nowcasting_tpu/dgmr.py``).
 
 Constructor fields mirror the reference hyperparameters (the hub
 ``config.json`` contract). Submodule names match the reference state-dict
-keys: ``conditioning_stack.*``, ``latent_stack.*``, ``sampler.*``. The
-discriminator and training are not ported yet, so the model runs in eval
-mode only (call ``.eval()``; train mode raises ``NotImplementedError``).
+keys: ``conditioning_stack.*``, ``latent_stack.*``, ``sampler.*``,
+``discriminator.*``. Eval mode serves nowcasts through the hand-written
+kernels; train mode is the GAN training path of :mod:`..training`, where
+every BatchNorm uses batch statistics and every spectral norm advances.
 
 The model lives on the GPU unless the caller asks for the CPU with
 ``device="cpu"``; without CUDA the default raises instead of running on the
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from .models.common import ContextConditioningStack, LatentConditioningStack
+from .models.discriminators import Discriminator
 from .models.generators import Sampler, ensemble_forward
 
 HPARAM_FIELDS = (
@@ -41,11 +43,14 @@ HPARAM_FIELDS = (
 
 
 class DGMR(nn.Module):
-    """Deep Generative Model of Radar, generator half.
+    """Deep Generative Model of Radar.
 
     ``forward`` maps context frames ``(B, 4, C, H, W)`` to one nowcast sample
-    ``(B, forecast_steps, C, H, W)``. Parameters and buffers are built on
-    ``device`` (default ``"cuda"``).
+    ``(B, forecast_steps, C, H, W)``; ``discriminate`` scores whole
+    sequences. Parameters and buffers are built on ``device`` (default
+    ``"cuda"``). ``num_spatial_layers`` / ``num_temporal_layers`` are the
+    discriminator towers' depths (4 / 3 in the reference); small test configs
+    shrink them, and like ``device`` they stay out of ``config``.
     """
 
     def __init__(
@@ -65,6 +70,8 @@ class DGMR(nn.Module):
         context_channels: int = 384,
         generation_steps: int = 6,
         precip_weight_cap: float = 24.0,
+        num_spatial_layers: int = 4,
+        num_temporal_layers: int = 3,
         device: torch.device | str = "cuda",
     ):
         device = torch.device(device)
@@ -104,6 +111,11 @@ class DGMR(nn.Module):
             latent_channels=latent_channels,
             context_channels=context_channels,
         )
+        self.discriminator = Discriminator(
+            input_channels=input_channels,
+            num_spatial_layers=num_spatial_layers,
+            num_temporal_layers=num_temporal_layers,
+        )
         self.to(device)
 
     def forward(
@@ -131,6 +143,15 @@ class DGMR(nn.Module):
         """
         s = num_samples if num_samples is not None else self.num_samples
         return ensemble_forward(self, x, s, z=z, generator=generator)
+
+    def discriminate(
+        self,
+        x: torch.Tensor,
+        frame_indices: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Spatial + temporal scores ``(B, 2, 1)`` of full sequences ``(B, T, C, H, W)``."""
+        return self.discriminator(x, frame_indices, generator)
 
     @property
     def config(self) -> dict:

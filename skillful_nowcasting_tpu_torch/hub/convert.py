@@ -85,11 +85,8 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
 def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> int:
     """Load a JAX variable tree into ``model`` with ``strict=True``.
 
-    The port has no discriminator yet, so a whole-DGMR tree's
-    ``discriminator.*`` keys are dropped by name; every other key must match.
-    Returns the number dropped.
+    Every key must match, ``discriminator.*`` included: nothing is dropped,
+    and the return value (the number of keys dropped) is 0.
     """
-    sd = state_dict_from_variables(variables)
-    kept = {k: v for k, v in sd.items() if not k.startswith("discriminator.")}
-    model.load_state_dict(kept, strict=True)
-    return len(sd) - len(kept)
+    model.load_state_dict(state_dict_from_variables(variables), strict=True)
+    return 0

@@ -1,4 +1,4 @@
-"""Convolutional GRU, eval path (port of ``skillful_nowcasting_tpu/layers/convgru.py``).
+"""Convolutional GRU (port of ``skillful_nowcasting_tpu/layers/convgru.py``).
 
 A cell of three spectrally normalized 3x3 convs (read gate, update gate,
 candidate) over the channel concat ``[x; h]``:
@@ -10,7 +10,9 @@ candidate) over the channel concat ``[x; h]``:
 part (the conv is linear over the concat). The input parts of all steps run
 up front as one fused 3C-output ``F.conv2d`` (once only for a static input);
 the hidden parts run inside :func:`~skillful_nowcasting_tpu_torch.ops.convgru_rollout`,
-which launches the hand-written kernel for CUDA tensors.
+which launches the hand-written kernel for CUDA tensors. Train mode runs a
+plain step loop instead, with per-step spectral norm: the kernel has no
+backward, and the JAX package does not use its kernel in training either.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ class ConvGRUCell(nn.Module):
 
 
 class ConvGRU(nn.Module):
-    """Unrolls a shared :class:`ConvGRUCell` over time (eval).
+    """Unrolls a shared :class:`ConvGRUCell` over time.
 
     Input sequence ``(T, B, Cx, H, W)`` (or ``(B, Cx, H, W)`` with
     ``x_static=True``, every step receiving the same tensor), initial hidden
@@ -80,6 +82,10 @@ class ConvGRU(nn.Module):
         n_steps: Optional[int] = None,
         x_static: bool = False,
     ) -> torch.Tensor:
+        if x_static and n_steps is None:
+            raise ValueError("x_static requires n_steps")
+        if self.training:
+            return self._train_forward(x_seq, hidden_state, n_steps, x_static)
         cell = self.cell
         xc = self.input_channels - self.output_channels
         # Spectral norm is applied by .weight (eval: constant across steps).
@@ -88,14 +94,9 @@ class ConvGRU(nn.Module):
         bias = torch.cat([conv.bias for conv in convs])
 
         # Input parts of all three gates as one conv, batched over every step.
-        k_x = torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]])
+        gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)
         if x_static:
-            if n_steps is None:
-                raise ValueError("x_static requires n_steps")
-            gx = F.conv2d(x_seq, k_x, padding=1)[None]
-        else:
-            t, b = x_seq.shape[:2]
-            gx = F.conv2d(x_seq.flatten(0, 1), k_x, padding=1).unflatten(0, (t, b))
+            gx = gx[None]
 
         # The rollout takes the JAX layouts: NHWC activations, HWIO kernels.
         to_hwio = lambda w: w.permute(2, 3, 1, 0).contiguous()  # noqa: E731
@@ -108,3 +109,42 @@ class ConvGRU(nn.Module):
             n_steps=n_steps,
         )
         return out.permute(0, 1, 4, 2, 3)  # (T, B, C, H, W)
+
+    def _train_forward(self, x_seq, hidden_state, n_steps, x_static):
+        """Train mode (``layers/convgru.py:199-270`` in JAX): a plain step loop, never the kernel.
+
+        Each step is one train forward of the cell: every gate conv runs one
+        power iteration and step ``t`` divides by its own ``sigma_t``. The
+        iterations do not depend on ``h``, so each conv's ``T`` sigmas are
+        taken up front. The input parts run batched over all steps with the
+        raw kernels; autograd runs through the whole loop.
+        """
+        cell = self.cell
+        xc, c = self.input_channels - self.output_channels, self.output_channels
+        t = n_steps if x_static else x_seq.shape[0]
+        convs = (cell.read_gate_conv, cell.update_gate_conv, cell.output_conv)
+        kr, ku, kc = (conv.parametrizations.weight.original for conv in convs)
+        sig_r, sig_u, sig_c = (
+            conv.parametrizations.weight[0].advance(k, t) for conv, k in zip(convs, (kr, ku, kc))
+        )
+        br, bu, bc = (conv.bias.view(-1, 1, 1) for conv in convs)
+        gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)
+        k_ru = torch.cat([kr[:, xc:], ku[:, xc:]])
+        h, outs = hidden_state, []
+        for step in range(t):
+            g = gx if x_static else gx[step]
+            gh = F.conv2d(h, k_ru, padding=1)
+            read = torch.sigmoid((g[:, :c] + gh[:, :c]) / sig_r[step] + br)
+            update = torch.sigmoid((g[:, c : 2 * c] + gh[:, c:]) / sig_u[step] + bu)
+            cand = F.conv2d(read * h, kc[:, xc:], padding=1)
+            cand = torch.relu((g[:, 2 * c :] + cand) / sig_c[step] + bc)
+            h = update * h + (1.0 - update) * cand
+            outs.append(h)
+        return torch.stack(outs)
+
+
+def _input_part(x_seq: torch.Tensor, k_x: torch.Tensor, x_static: bool) -> torch.Tensor:
+    """The gates' input-part conv: once for a static ``(B, Cx, H, W)``, else over all T steps."""
+    if x_static:
+        return F.conv2d(x_seq, k_x, padding=1)
+    return F.conv2d(x_seq.flatten(0, 1), k_x, padding=1).unflatten(0, x_seq.shape[:2])

@@ -8,16 +8,20 @@ from .common import (
     LBlock,
     UpsampleGBlock,
 )
+from .discriminators import Discriminator, SpatialDiscriminator, TemporalDiscriminator
 from .generators import Generator, Sampler, ensemble_forward
 
 __all__ = [
     "ContextConditioningStack",
     "DBlock",
+    "Discriminator",
     "GBlock",
     "Generator",
     "LBlock",
     "LatentConditioningStack",
     "Sampler",
+    "SpatialDiscriminator",
+    "TemporalDiscriminator",
     "UpsampleGBlock",
     "ensemble_forward",
 ]

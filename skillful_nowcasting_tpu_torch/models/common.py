@@ -1,11 +1,17 @@
-"""Composite blocks and conditioning stacks, eval path, NCHW.
+"""Composite blocks and conditioning stacks, NCHW (NCDHW for 3-D DBlocks).
 
 Port of ``skillful_nowcasting_tpu/models/common.py``. Module and parameter
 names follow the reference torch state dict. The shortcut 1x1 convs that the
 reference builds but never applies (GBlock and DBlock with equal channel
-counts) are kept as parameters, so checkpoints load with ``strict=True``.
-Sequences are ``(B, T, C, H, W)``; in eval every per-timestep block is
-batch-independent, so timesteps fold into the batch.
+counts) are kept as parameters, so checkpoints load with ``strict=True``;
+they are never evaluated, so their spectral-norm vectors never advance (the
+JAX blocks call them with ``update_stats=False`` and drop the result).
+
+Every block's ``forward(x, steps=None)`` takes the JAX ``sequential``
+semantics: with ``steps=S`` the batch holds ``S`` slices (slice-major), and
+in train mode each slice gets its own BatchNorm statistics and its own
+spectral-norm sigma, as ``S`` sequential torch forwards would. In eval every
+per-timestep block is batch-independent, so ``steps`` changes nothing there.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ class GBlock(nn.Module):
 
     Eval runs folded (BN into affines, SN into kernels) through
     :func:`~skillful_nowcasting_tpu_torch.ops.gblock_fused`: the hand-written
-    kernel for CUDA tensors, the plain version for CPU tensors.
+    kernel for CUDA tensors, the plain version for CPU tensors. Train mode
+    has no fold (BN uses batch statistics) and runs the plain layers.
     """
 
     def __init__(
@@ -56,10 +63,14 @@ class GBlock(nn.Module):
             input_channels, output_channels, 3, padding=1, spectral_norm=True, sn_eps=eps
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # Train mode raises in the fold, from the spectral-norm parametrization.
-        y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *fold_gblock_variables(self))
-        return y.permute(0, 3, 1, 2)
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+        if not self.training:
+            y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *fold_gblock_variables(self))
+            return y.permute(0, 3, 1, 2)
+        sc = self.conv_1x1(x, steps) if x.shape[1] != self.last_conv_3x3.out_channels else x
+        h = self.first_conv_3x3(torch.relu(self.bn1(x, steps)), steps)
+        h = self.last_conv_3x3(torch.relu(self.bn2(h, steps)), steps)
+        return h + sc
 
 
 class UpsampleGBlock(nn.Module):
@@ -85,15 +96,18 @@ class UpsampleGBlock(nn.Module):
             input_channels, output_channels, 3, padding=1, spectral_norm=True, sn_eps=eps
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sc = self.conv_1x1(upsample_nearest_2x(x))
-        y = upsample_nearest_2x(torch.relu(self.bn1(x)))
-        y = torch.relu(self.bn2(self.first_conv_3x3(y)))
-        return self.last_conv_3x3(y) + sc
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+        sc = self.conv_1x1(upsample_nearest_2x(x), steps)
+        y = upsample_nearest_2x(torch.relu(self.bn1(x, steps)))
+        y = torch.relu(self.bn2(self.first_conv_3x3(y, steps), steps))
+        return self.last_conv_3x3(y, steps) + sc
 
 
 class DBlock(nn.Module):
-    """Residual downsampling block, 2-D. Spectral norm keeps torch's default eps (1e-12)."""
+    """Residual downsampling block, 2-D, or 3-D on NCDHW with ``conv_type="3d"``.
+
+    Spectral norm keeps torch's default eps (1e-12).
+    """
 
     def __init__(
         self,
@@ -116,15 +130,15 @@ class DBlock(nn.Module):
             output_channels, output_channels, 3, padding=1, spectral_norm=True
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
         if self.use_sc_conv:
-            x1 = self.conv_1x1(x)
+            x1 = self.conv_1x1(x, steps)
             if not self.keep_same_output:
                 x1 = avg_pool(x1, 2)
         else:
             x1 = x
         h = torch.relu(x) if self.first_relu else x
-        h = self.last_conv_3x3(torch.relu(self.first_conv_3x3(h)))
+        h = self.last_conv_3x3(torch.relu(self.first_conv_3x3(h, steps)), steps)
         if not self.keep_same_output:
             h = avg_pool(h, 2)
         return x1 + h
@@ -159,6 +173,8 @@ class ContextConditioningStack(nn.Module):
 
     Returns NCHW states ordered largest spatial first:
     ``(B, oc/8, H/8, W/8), ..., (B, oc, H/64, W/64)`` for one input channel.
+    The DBlocks see the context steps T-major, ``(T*B, ...)`` with
+    ``steps=T``, as the JAX stack's ``(T, B, ...)`` sequential axis.
     """
 
     def __init__(
@@ -182,13 +198,13 @@ class ContextConditioningStack(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         b, t = x.shape[:2]
-        h = space_to_depth(x, 2).flatten(0, 1)  # (B*T, 4C, H/2, W/2)
+        h = space_to_depth(x, 2).transpose(0, 1).flatten(0, 1)  # (T*B, 4C, H/2, W/2)
         states = []
         for block, mix in ((self.d1, self.conv1), (self.d2, self.conv2),
                            (self.d3, self.conv3), (self.d4, self.conv4)):
-            h = block(h)
-            # (B*T, c, h, w) -> (B, c, T, h, w) -> (B, c*T, h, w): channel order (c, t).
-            s = h.unflatten(0, (b, t)).transpose(1, 2).flatten(1, 2)
+            h = block(h, steps=t)
+            # (T*B, c, h, w) -> (B, c, T, h, w) -> (B, c*T, h, w): channel order (c, t).
+            s = h.unflatten(0, (t, b)).permute(1, 2, 0, 3, 4).flatten(1, 2)
             states.append(torch.relu(mix(s)))
         return tuple(states)
 

@@ -1,11 +1,16 @@
-"""Generator: ConvGRU sampler pyramid + composition wrapper, eval path, NCHW.
+"""Generator: ConvGRU sampler pyramid + composition wrapper, NCHW.
 
 Port of ``skillful_nowcasting_tpu/models/generators.py``. Each of the four
-Sampler levels runs one ConvGRU rollout (the hand-written rollout kernel on
-CUDA tensors), then the 1x1 conv, GBlock (the hand-written GBlock kernel on
-CUDA tensors) and UpsampleGBlock on all timesteps at once, timesteps folded
-into the batch. The bottom level's input is the same latent at every step,
-so it takes the ConvGRU's static-input path.
+Sampler levels runs one ConvGRU rollout (in eval the hand-written rollout
+kernel on CUDA tensors), then the 1x1 conv, GBlock (in eval the hand-written
+GBlock kernel on CUDA tensors) and UpsampleGBlock on all timesteps at once,
+timesteps folded T-major into the batch with ``steps=T``: in train mode each
+timestep gets its own BatchNorm statistics and spectral-norm sigma, as the
+reference's per-timestep loops give. The bottom level's input is the same
+latent at every step, so it takes the ConvGRU's static-input path.
+
+The JAX Sampler's ``train_t_chunks`` (remat over T-chunks, for a 16 GB
+chip) is not ported: the full-width train step fits the card without it.
 """
 
 from __future__ import annotations
@@ -69,12 +74,12 @@ class Sampler(nn.Module):
             else:
                 seq = gru(h, init_state)
             t, b = seq.shape[:2]
-            x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1))
-            x = getattr(self, f"g{i + 1}")(x)
-            x = getattr(self, f"up_g{i + 1}")(x)
+            x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1), t)
+            x = getattr(self, f"g{i + 1}")(x, t)
+            x = getattr(self, f"up_g{i + 1}")(x, t)
             h = x.unflatten(0, (t, b))  # (T, B, C, H, W)
         # Output head per timestep: BN -> ReLU -> SN 1x1 -> PixelShuffle(2).
-        x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1))))
+        x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1), t)), t)
         x = depth_to_space(x, 2).unflatten(0, (t, b))
         return x.transpose(0, 1)  # (B, T, C, H, W)
 

@@ -1,17 +1,67 @@
-"""Conv2d with optional spectral norm, in the reference's module schema.
+"""Conv2d / Conv3d / Linear with optional spectral norm, in the reference's module schema.
 
-Port of the eval path of ``skillful_nowcasting_tpu/ops/conv.py:Conv`` (2-D).
-The JAX ``Conv`` stores an HWIO kernel and applies SN itself; here a plain
-``nn.Conv2d`` (OIHW) carries the :class:`~.spectral_norm.SpectralNorm`
-parametrization, so its state dict has the reference torch keys. ``Dense``
-and the train-mode per-timestep sigma sequence are not ported yet.
+Port of ``skillful_nowcasting_tpu/ops/conv.py`` (``Conv`` 2-D and 3-D,
+``Dense``). The JAX layers store HWIO / DHWIO / ``(in, out)`` kernels and
+apply SN themselves; here plain ``nn.Conv2d`` / ``nn.Conv3d`` / ``nn.Linear``
+(OIHW, OIDHW, ``(out, in)``) carry the
+:class:`~.spectral_norm.SpectralNorm` parametrization, so their state dicts
+have the reference torch keys.
+
+Every layer's ``forward(x, steps=None)`` takes the JAX ``sequential`` train
+semantics: in train mode a spectrally normalized layer runs one power
+iteration per forward, and with ``steps=S`` the batch holds ``S`` slices
+(slice-major, ``N = S * B``) that stand for ``S`` sequential forwards, slice
+``t`` seeing its own ``sigma_t``. Since the layer is linear, ONE batched
+conv (or matmul) with the raw weight runs over all slices and slice ``t``
+is divided by ``sigma_t`` before the bias is added
+(``skillful_nowcasting_tpu/ops/conv.py:121-171,205-237``). In eval mode and
+without spectral norm, ``steps`` changes nothing.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from .spectral_norm import spectral_norm as _spectral_norm
+
+
+class _TrainSpectral:
+    """``forward(x, steps=None)`` shared by the three layers below."""
+
+    def _linear(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """The layer without its bias, on an explicit weight (convs; :class:`Linear` overrides)."""
+        return self._conv_forward(x, weight, None)
+
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+        if not (self.training and parametrize.is_parametrized(self, "weight")):
+            return super().forward(x)
+        raw = self.parametrizations.weight.original
+        sigmas = self.parametrizations.weight[0].advance(raw, steps or 1)
+        y = self._linear(x, raw)
+        y = y.unflatten(0, (sigmas.shape[0], -1))
+        y = y / sigmas.to(y.dtype).view((-1,) + (1,) * (y.ndim - 1))
+        y = y.flatten(0, 1)
+        return y if self.bias is None else y + self.bias.view((-1,) + (1,) * (y.ndim - 2))
+
+
+class Conv2d(_TrainSpectral, nn.Conv2d):
+    """``nn.Conv2d`` whose train forward applies per-slice spectral norm."""
+
+
+class Conv3d(_TrainSpectral, nn.Conv3d):
+    """``nn.Conv3d`` whose train forward applies per-slice spectral norm."""
+
+
+class Linear(_TrainSpectral, nn.Linear):
+    """``nn.Linear`` (weight ``(out, in)``) whose train forward applies per-slice spectral norm."""
+
+    def _linear(self, x, weight):
+        return F.linear(x, weight)
 
 
 def conv2d(
@@ -22,7 +72,33 @@ def conv2d(
     bias: bool = True,
     spectral_norm: bool = False,
     sn_eps: float = 1e-12,
-) -> nn.Conv2d:
-    """A stride-1 ``nn.Conv2d``, spectrally normalized when ``spectral_norm``."""
-    conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=padding, bias=bias)
+) -> Conv2d:
+    """A stride-1 :class:`Conv2d`, spectrally normalized when ``spectral_norm``."""
+    conv = Conv2d(in_channels, out_channels, kernel_size, padding=padding, bias=bias)
     return _spectral_norm(conv, sn_eps) if spectral_norm else conv
+
+
+def conv3d(
+    in_channels: int,
+    out_channels: int,
+    kernel_size: int = 3,
+    padding: int = 0,
+    bias: bool = True,
+    spectral_norm: bool = False,
+    sn_eps: float = 1e-12,
+) -> Conv3d:
+    """A stride-1 :class:`Conv3d` on NCDHW, spectrally normalized when ``spectral_norm``."""
+    conv = Conv3d(in_channels, out_channels, kernel_size, padding=padding, bias=bias)
+    return _spectral_norm(conv, sn_eps) if spectral_norm else conv
+
+
+def dense(
+    in_features: int,
+    out_features: int,
+    bias: bool = True,
+    spectral_norm: bool = False,
+    sn_eps: float = 1e-12,
+) -> Linear:
+    """The JAX ``Dense``: a :class:`Linear`, spectrally normalized when ``spectral_norm``."""
+    layer = Linear(in_features, out_features, bias=bias)
+    return _spectral_norm(layer, sn_eps) if spectral_norm else layer

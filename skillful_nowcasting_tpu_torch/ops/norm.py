@@ -1,23 +1,60 @@
-"""Eval BatchNorm: port of ``skillful_nowcasting_tpu/ops/norm.py:TorchBatchNorm``.
+"""BatchNorm with torch semantics: port of ``skillful_nowcasting_tpu/ops/norm.py:TorchBatchNorm``.
 
-In eval mode ``TorchBatchNorm(train=False)`` is exactly ``nn.BatchNorm2d`` with
-running statistics (keys ``weight``, ``bias``, ``running_mean``,
-``running_var``, ``num_batches_tracked``). Train mode, with its per-timestep
-statistics and closed-form sequential EMA, is not ported yet and raises.
+Eval is exactly ``nn.BatchNorm2d`` / ``nn.BatchNorm1d`` with running
+statistics (keys ``weight``, ``bias``, ``running_mean``, ``running_var``,
+``num_batches_tracked``). Train mode follows the JAX module
+(``ops/norm.py:60-119``):
+
+* statistics at no less than f32, ``var = E[x^2] - mean^2``;
+* the biased variance normalizes, the unbiased one (``n / (n - 1)``) feeds
+  the running variance;
+* ``forward(x, steps=S)`` treats the batch as ``S`` slices (slice-major,
+  ``N = S * B``), each normalized with its own statistics, and gives the
+  running statistics the closed form of ``S`` sequential updates:
+  ``r' = (1-m)^S r + m * sum_t (1-m)^(S-1-t) stat_t``.
+
+``num_batches_tracked`` (JAX has no such counter) rises by ``S``, the
+number of torch train forwards the call stands for; nothing reads it, since
+the momentum is fixed.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` that refuses train mode."""
+class _TorchBatchNorm:
+    """``forward(x, steps=None)`` shared by the 1-D and 2-D layers below."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval() on the model"
-            )
-        return super().forward(x)
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        s = steps or 1
+        xs = x.unflatten(0, (s, -1)).to(torch.promote_types(x.dtype, torch.float32))
+        red = (1,) + tuple(range(3, xs.ndim))  # all but the slice and channel axes
+        mean = xs.mean(dim=red)  # (S, C)
+        var = (xs * xs).mean(dim=red) - mean * mean  # biased
+        n = xs[:, :, 0].numel() // s
+        with torch.no_grad():
+            m = self.momentum
+            decay = (1.0 - m) ** torch.arange(s - 1, -1, -1, dtype=mean.dtype, device=x.device)
+            unbiased = var * (n / max(n - 1, 1))
+            for running, stat in ((self.running_mean, mean), (self.running_var, unbiased)):
+                running.copy_((1.0 - m) ** s * running + m * (decay @ stat))
+            self.num_batches_tracked.add_(s)
+        shape = (s, -1) + (1,) * (xs.ndim - 3)
+        inv = 1.0 / torch.sqrt(var + self.eps) * self.weight
+        y = (xs - mean.view(shape).unsqueeze(1)) * inv.view(shape).unsqueeze(1)
+        y = y + self.bias.view((-1,) + (1,) * (xs.ndim - 3))
+        return y.flatten(0, 1).to(x.dtype)
+
+
+class BatchNorm2d(_TorchBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` on ``(N, C, H, W)`` with the JAX train semantics."""
+
+
+class BatchNorm1d(_TorchBatchNorm, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` on ``(N, C)`` with the JAX train semantics (the discriminator heads)."""

@@ -1,4 +1,4 @@
-"""2x2 average pooling (port of the 2-D case of ``skillful_nowcasting_tpu/ops/pool.py``)."""
+"""Average pooling (port of ``skillful_nowcasting_tpu/ops/pool.py``)."""
 
 from __future__ import annotations
 
@@ -7,5 +7,9 @@ import torch.nn.functional as F
 
 
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """VALID average pooling with stride ``window`` on ``(N, C, H, W)``, floor output size."""
-    return F.avg_pool2d(x, window)
+    """VALID average pooling with stride ``window``, floor output size.
+
+    ``(N, C, H, W)`` pools H and W; ``(N, C, D, H, W)`` pools D as well (the
+    temporal discriminator's 3-D DBlocks: T goes 22 -> 11 -> 5).
+    """
+    return F.avg_pool3d(x, window) if x.ndim == 5 else F.avg_pool2d(x, window)

@@ -1,15 +1,20 @@
-"""Spectral normalization in eval, with PyTorch's parametrization key schema.
+"""Spectral normalization with PyTorch's parametrization key schema.
 
 Port of ``skillful_nowcasting_tpu/ops/spectral_norm.py``. The weight matrix is
-torch's ``(out, fan_in)`` view, which an OIHW weight gives by a plain reshape;
-``sigma = u . (W v)`` with the stored vectors; a fresh ``(u, v)`` is a pair of
-normalized gaussians after 15 power iterations.
+torch's ``(out, fan_in)`` view, which an OIHW / OIDHW / ``(out, in)`` weight
+gives by a plain reshape; ``sigma = u . (W v)``; a fresh ``(u, v)`` is a pair
+of normalized gaussians after 15 power iterations.
 
 :class:`SpectralNorm` is a parametrization for
 ``torch.nn.utils.parametrize.register_parametrization``: registered on a
-conv's ``weight`` it stores ``parametrizations.weight.original`` and the
+layer's ``weight`` it stores ``parametrizations.weight.original`` and the
 ``parametrizations.weight.0._u`` / ``._v`` buffers, the reference state-dict
-keys. Train mode (a power iteration per forward) is not ported yet and raises.
+keys. Reading ``.weight`` always gives ``W / sigma`` with the stored vectors
+and never advances them (the JAX ``update_stats=False`` read). Train mode's
+power iterations run in the owning layer's forward, through
+:meth:`SpectralNorm.advance`: torch's parametrization evaluates ``weight``
+once per access, so it cannot hand a sequence of per-slice sigmas to one
+batched conv.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def kernel_to_weight_mat(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW conv (or ``(out, in)`` linear) weight -> torch's ``(out, fan_in)`` matrix."""
+    """OIHW / OIDHW conv (or ``(out, in)`` linear) weight -> torch's ``(out, fan_in)`` matrix."""
     return weight.reshape(weight.shape[0], -1)
 
 
@@ -61,7 +66,7 @@ def init_uv(
 
 
 class SpectralNorm(nn.Module):
-    """Eval spectral-norm parametrization: ``weight / (u . (W v))``."""
+    """Spectral-norm parametrization: ``weight / (u . (W v))`` with the stored ``(u, v)``."""
 
     def __init__(self, weight: torch.Tensor, eps: float = 1e-12):
         super().__init__()
@@ -72,16 +77,32 @@ class SpectralNorm(nn.Module):
         self.register_buffer("_v", v)
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode spectral norm is not ported yet; call .eval() on the model"
-            )
         return weight / spectral_sigma(kernel_to_weight_mat(weight), self._u, self._v)
+
+    def advance(self, weight: torch.Tensor, steps: int = 1) -> torch.Tensor:
+        """Train mode: ``steps`` sequential forwards' sigmas, shape ``(steps,)``.
+
+        Each forward runs one power iteration on the detached weight (torch's
+        ``no_grad`` update of ``u``, ``v``) and estimates ``sigma_t = u_t .
+        (W v_t)`` with the gradient flowing through ``W`` only. The buffers
+        end at the last iteration's vectors.
+        """
+        wm = kernel_to_weight_mat(weight)
+        us, vs = [], []
+        with torch.no_grad():
+            u, v = self._u, self._v
+            for _ in range(steps):
+                u, v = power_iteration(wm, u, v, self.eps)
+                us.append(u)
+                vs.append(v)
+            self._u.copy_(u)
+            self._v.copy_(v)
+        return (torch.stack(us) * (torch.stack(vs) @ wm.T)).sum(dim=1)
 
 
 def spectral_norm(module: nn.Module, eps: float = 1e-12) -> nn.Module:
     """Register :class:`SpectralNorm` on ``module.weight`` and return the module."""
-    # unsafe=True: the consistency check would run forward in train mode.
+    # unsafe=True: skip the consistency check's trial forward.
     parametrize.register_parametrization(
         module, "weight", SpectralNorm(module.weight, eps), unsafe=True
     )

@@ -1,0 +1,399 @@
+"""The GAN training step and the validation step (port of ``skillful_nowcasting_tpu/training.py``).
+
+One optimizer iteration of the reference (``training.py:429-712`` in JAX):
+
+* **D phase**, 2 updates. Each draws a fresh generator sample (train mode,
+  no gradient; it still advances the generator's BatchNorm and
+  spectral-norm state), scores real||generated concatenated along the batch
+  in one discriminator call (shared BatchNorm statistics), and steps D.
+* **G phase.** ``generation_steps`` train-mode rollouts, each scored by the
+  train-mode discriminator (its state advances, its parameters do not step).
+  The loss is ``hinge_gen + grid_lambda * grid(mean of samples)``; one G
+  step.
+* **One logging forward** (quirk Q8), which advances the state again.
+
+State lives where torch keeps it: parameters and BN/SN buffers in the
+model, moments in the optimizers (:class:`TrainState`). Every BN/SN buffer
+advances once per forward, as in JAX. With ``rollout_remat`` each G rollout
+runs under ``torch.utils.checkpoint``; its recompute in the backward pass
+replays the buffers the first pass found and writes nothing, so it
+neither advances the state a second time nor computes the gradient with
+other sigmas or statistics than the loss saw.
+
+The step takes its randomness from a ``torch.Generator``, or from explicit
+:class:`StepDraws` (a latent per generator forward, frame indices per
+discriminator call). Not ported yet: ``r1_gamma``, ``compute_dtype`` (bf16),
+``watch_gradients``, ``watch_histograms`` and ``axis_name``
+(data parallelism).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.optim.lr_scheduler import LambdaLR
+from torch.utils.checkpoint import checkpoint
+
+from .losses import GridCellLoss, loss_hinge_disc, loss_hinge_gen, weight_fn
+from .models.common import draw_latents
+from .models.discriminators import draw_frames
+
+N_DISC_STEPS = 2
+
+
+@dataclass
+class TrainState:
+    """Everything that evolves during training: the model and both optimizers."""
+
+    model: nn.Module
+    g_opt: torch.optim.Optimizer
+    d_opt: torch.optim.Optimizer
+    g_sched: LambdaLR
+    d_sched: LambdaLR
+    step: int = 0
+
+
+@dataclass
+class StepDraws:
+    """The random draws of one step, in the JAX step's key order (``training.py:450-455``).
+
+    Latents are ``(1, 8C, H/32, W/32)``, frame indices ``(8,)`` integers.
+    ``log_z`` (the logging forward's latent) is ``None`` in the eval step.
+    """
+
+    d_z: List[torch.Tensor]
+    d_frames: List[torch.Tensor]
+    g_z: List[torch.Tensor]
+    g_frames: List[torch.Tensor]
+    log_z: Optional[torch.Tensor] = None
+
+
+def draw_step(
+    model, seq_len: int, generator: Optional[torch.Generator] = None, logging_forward: bool = True
+) -> StepDraws:
+    """Draw one step's latents and spatial-discriminator frame indices (in ``[0, seq_len)``)."""
+    like = next(model.parameters())
+    n_gen = model.generation_steps
+    n_frames = model.discriminator.spatial_discriminator.num_timesteps
+
+    def z(n):
+        return [draw_latents(model.latent_stack.shape, 1, generator, like) for _ in range(n)]
+
+    def frames(n):
+        return [draw_frames(n_frames, seq_len, generator) for _ in range(n)]
+
+    return StepDraws(
+        d_z=z(N_DISC_STEPS),
+        d_frames=frames(N_DISC_STEPS),
+        g_z=z(n_gen),
+        g_frames=frames(n_gen),
+        log_z=z(1)[0] if logging_forward else None,
+    )
+
+
+def split_params(model: nn.Module) -> Tuple[Dict[str, nn.Parameter], Dict[str, nn.Parameter]]:
+    """The model's parameters by name: (generator, discriminator)."""
+    g, d = {}, {}
+    for name, p in model.named_parameters():
+        (d if name.startswith("discriminator.") else g)[name] = p
+    return g, d
+
+
+def make_lr_schedule(base_lr: float, spec: Optional[str]) -> Callable[[int], float]:
+    """An optax-equivalent schedule ``update count -> lr`` for an opt-in spec string.
+
+    * ``None`` / ``"constant"``           -> ``base_lr`` (the reference)
+    * ``"cosine:<steps>[:<alpha>]"``      -> cosine decay to ``alpha*base``
+    * ``"exp:<steps>:<rate>"``            -> ``base * rate**(t/steps)``
+    * ``"warmup_cosine:<warm>:<steps>[:<alpha>]"`` -> linear warmup from 0
+      over ``warm`` steps, then cosine decay to ``alpha*base`` at ``steps``
+    * ``"linear:<steps>[:<end_scale>]"``  -> linear to ``end_scale*base``
+    """
+
+    def cosine(init, steps, alpha):
+        def f(count):
+            c = min(count, steps)
+            return init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / steps)) + alpha)
+        return f
+
+    if spec is None or spec == "constant":
+        return lambda count: base_lr
+    kind, *args = spec.split(":")
+    if kind == "cosine":
+        return cosine(base_lr, int(args[0]), float(args[1]) if len(args) > 1 else 0.0)
+    if kind == "exp":
+        steps, rate = int(args[0]), float(args[1])
+        return lambda count: base_lr if count <= 0 else base_lr * rate ** (count / steps)
+    if kind == "warmup_cosine":
+        warm, steps = int(args[0]), int(args[1])
+        alpha = float(args[2]) if len(args) > 2 else 0.0
+        decay = cosine(base_lr, steps - warm, alpha)
+        return lambda count: base_lr * count / warm if count < warm else decay(count - warm)
+    if kind == "linear":
+        steps = int(args[0])
+        end = (float(args[1]) if len(args) > 1 else 0.0) * base_lr
+        return lambda count: (base_lr - end) * (1 - min(max(count, 0), steps) / steps) + end
+    raise ValueError(f"unknown lr schedule spec: {spec!r}")
+
+
+def make_optimizers(model) -> Tuple[torch.optim.Optimizer, torch.optim.Optimizer]:
+    """Adam over the G and D parameters: the model's lrs and betas, eps 1e-8 (optax's formula)."""
+    g, d = split_params(model)
+    betas = (model.beta1, model.beta2)
+    return (
+        torch.optim.Adam(g.values(), lr=model.gen_lr, betas=betas, eps=1e-8),
+        torch.optim.Adam(d.values(), lr=model.disc_lr, betas=betas, eps=1e-8),
+    )
+
+
+def lr_scheduler(opt: torch.optim.Optimizer, spec: Optional[str]) -> LambdaLR:
+    """Drive ``opt``'s lr by :func:`make_lr_schedule` from its update count (step it after ``opt``).
+
+    As with optax, the first update uses the schedule's value at count 0.
+    """
+    base = opt.param_groups[0]["lr"]
+    schedule = make_lr_schedule(base, spec)
+    return LambdaLR(opt, lambda count: schedule(count) / base)
+
+
+def init_train_state(
+    model,
+    optimizers: Optional[Tuple[torch.optim.Optimizer, torch.optim.Optimizer]] = None,
+    *,
+    g_lr_schedule: Optional[str] = None,
+    d_lr_schedule: Optional[str] = None,
+) -> TrainState:
+    """Wrap an initialized model with its optimizers and lr schedules.
+
+    ``optimizers`` replaces :func:`make_optimizers`' Adam pair (for example
+    SGD for equivalence tests, where Adam at ``beta1 = 0`` turns last-bit
+    gradient differences into O(lr) steps). A torch optimizer carries its
+    own state, so the override is given here once; the JAX package passes
+    it to both ``init_train_state`` and ``make_train_step``.
+    """
+    g_opt, d_opt = optimizers if optimizers is not None else make_optimizers(model)
+    return TrainState(
+        model, g_opt, d_opt, lr_scheduler(g_opt, g_lr_schedule), lr_scheduler(d_opt, d_lr_schedule)
+    )
+
+
+@torch.no_grad()
+def desaturate_discriminator(model, factor: float = 0.01):
+    """Shrink both D heads' pre-classifier BatchNorm scale so the hinge terms are active.
+
+    At random init the hinge can saturate (real scores >= 1, generated <= -1),
+    which zeroes every D gradient and makes any check on D vacuous. The two
+    BatchNorms are found by name under ``discriminator``; another count raises.
+    """
+    hits = [m for name, m in model.discriminator.named_modules() if name.split(".")[-1] == "bn"]
+    if len(hits) != 2:
+        raise KeyError(f"expected the 2 discriminator heads' 'bn' modules, found {len(hits)}")
+    for bn in hits:
+        bn.weight.mul_(factor)
+    return model
+
+
+def _split_scores(scores: torch.Tensor, n_real: int):
+    """(2B, 2, 1) scores -> real spatial, real temporal, generated spatial, generated temporal."""
+    real, generated = scores[:n_real], scores[n_real:]
+    return real[:, :1], real[:, 1:], generated[:, :1], generated[:, 1:]
+
+
+def _generator_buffers(model) -> Dict[str, torch.Tensor]:
+    mods = (model.conditioning_stack, model.latent_stack, model.sampler)
+    return {f"{i}.{k}": b for i, mod in enumerate(mods) for k, b in mod.named_buffers()}
+
+
+def _replay_generator_state(model):
+    """``context_fn`` of a rollout's checkpoint: its recompute replays the generator's
+    buffers (BN running stats, SN ``u``/``v``) as the first pass found them, and
+    restores them as they are afterwards, so the recompute writes nothing."""
+    found: Dict[str, torch.Tensor] = {}
+
+    def copy_into(bufs, values):
+        with torch.no_grad():
+            for k, b in bufs.items():
+                b.copy_(values[k])
+
+    @contextlib.contextmanager
+    def first_pass():
+        found.update({k: b.clone() for k, b in _generator_buffers(model).items()})
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        bufs = _generator_buffers(model)
+        now = {k: b.clone() for k, b in bufs.items()}
+        copy_into(bufs, found)
+        try:
+            yield
+        finally:
+            copy_into(bufs, now)
+
+    return first_pass(), recompute()
+
+
+def _grads(loss, params: Dict[str, nn.Parameter]) -> Dict[str, torch.Tensor]:
+    """d loss / d params, zeros for parameters off the graph (the unused shortcut convs)."""
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {
+        k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)
+    }
+
+
+def _apply(opt, sched, params, grads) -> None:
+    for k, p in params.items():
+        p.grad = grads[k]
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    sched.step()
+
+
+def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(g.pow(2).sum() for g in grads.values()))
+
+
+@contextlib.contextmanager
+def _mode(model, training: bool):
+    """Run the block with ``model`` in train (or eval) mode, and restore its mode after."""
+    was_training = model.training
+    model.train(training)
+    try:
+        yield
+    finally:
+        model.train(was_training)
+
+
+def _batches(model, images, future_images):
+    dev = next(model.parameters()).device
+    images, future_images = images.to(dev), future_images.to(dev)
+    return images, future_images, torch.cat([images, future_images], dim=1)
+
+
+def make_train_step(
+    model,
+    *,
+    logging_forward: bool = True,
+    return_grads: bool = False,
+    rollout_remat: bool = True,
+):
+    """Build ``train_step(state, images, future_images, generator=None, draws=None) -> metrics``.
+
+    Batches are NTCHW, moved to the model's device. The step updates
+    ``state`` in place (parameters, buffers, optimizers, ``step``) and
+    returns the six ``train/*`` scalars; with ``return_grads`` also
+    ``g_grads`` (name -> tensor) and ``d_grads`` (name -> the two D steps'
+    gradients stacked). ``logging_forward=False`` drops the reference's unused
+    extra generator forward (quirk Q8). ``rollout_remat`` recomputes each G
+    rollout in the backward pass instead of keeping its activations.
+    """
+    grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
+    n_gen = model.generation_steps
+
+    def train_step(state: TrainState, images, future_images, generator=None, draws=None):
+        mdl = state.model
+        images, future_images, real_seq = _batches(mdl, images, future_images)
+        if draws is None:
+            draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward)
+        b = images.shape[0]
+        g_params, d_params = split_params(mdl)
+        with _mode(mdl, True):
+            d_losses, d_grads = [], []
+            for z, frames in zip(draws.d_z, draws.d_frames):
+                with torch.no_grad():
+                    preds = mdl(images, z=z)
+                concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+                rs, rt, gs, gt = _split_scores(mdl.discriminate(concat, frame_indices=frames), b)
+                loss = loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt)
+                grads = _grads(loss, d_params)
+                _apply(state.d_opt, state.d_sched, d_params, grads)
+                d_losses.append(loss.detach())
+                d_grads.append(grads)
+
+            def rollout(z):
+                return mdl(images, z=z)
+
+            sum_preds, gen_scores = 0.0, []
+            for z, frames in zip(draws.g_z, draws.g_frames):
+                if rollout_remat:
+                    preds = checkpoint(
+                        rollout, z, use_reentrant=False,
+                        context_fn=lambda: _replay_generator_state(mdl),
+                    )
+                else:
+                    preds = rollout(z)
+                concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+                gen_scores.append(mdl.discriminate(concat, frame_indices=frames)[b:])
+                sum_preds = sum_preds + preds
+            grid = grid_loss(sum_preds / n_gen, future_images)
+            g_disc_loss = loss_hinge_gen(torch.stack(gen_scores))
+            g_loss = g_disc_loss + mdl.grid_lambda * grid
+            g_grads = _grads(g_loss, g_params)
+            _apply(state.g_opt, state.g_sched, g_params, g_grads)
+
+            if logging_forward:
+                with torch.no_grad():
+                    mdl(images, z=draws.log_z)
+        state.step += 1
+
+        metrics = {
+            "train/d_loss": d_losses[-1],
+            "train/g_loss": g_loss.detach(),
+            "train/grid_loss": grid.detach(),
+            "train/g_disc_loss": g_disc_loss.detach(),
+            "train/g_grad_norm": _global_norm(g_grads),
+            "train/d_grad_norm": _global_norm(d_grads[-1]),
+        }
+        if return_grads:
+            metrics["g_grads"] = g_grads
+            metrics["d_grads"] = {k: torch.stack([g[k] for g in d_grads]) for k in d_params}
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(model):
+    """Build ``eval_step(state, images, future_images, generator=None, draws=None) -> metrics``.
+
+    The validation step (``training.py:731-802`` in JAX): the same losses
+    with the model in eval mode (the hand-written kernels on the card),
+    no gradients and no updates. Two D evaluations, each on a fresh sample
+    (``val/d_loss`` is the last, ``val/d_loss_first`` the first), then
+    ``generation_steps`` samples for the grid loss and the generator hinge.
+    """
+    grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images, future_images, generator=None, draws=None):
+        mdl = state.model
+        images, future_images, real_seq = _batches(mdl, images, future_images)
+        if draws is None:
+            draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward=False)
+        b = images.shape[0]
+
+        def score(z, frames):
+            preds = mdl(images, z=z)
+            concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+            return preds, mdl.discriminate(concat, frame_indices=frames)
+
+        with _mode(mdl, False):
+            d_losses = []
+            for z, frames in zip(draws.d_z, draws.d_frames):
+                rs, rt, gs, gt = _split_scores(score(z, frames)[1], b)
+                d_losses.append(loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt))
+            preds, scores = zip(*(score(z, f) for z, f in zip(draws.g_z, draws.g_frames)))
+        grid = grid_loss(torch.stack(preds).mean(dim=0), future_images)
+        g_loss = loss_hinge_gen(torch.stack([s[b:] for s in scores])) + mdl.grid_lambda * grid
+        return {
+            "val/d_loss": d_losses[-1],
+            "val/g_loss": g_loss,
+            "val/grid_loss": grid,
+            "val/d_loss_first": d_losses[0],
+        }
+
+    return eval_step

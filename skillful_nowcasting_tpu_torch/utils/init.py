@@ -1,12 +1,14 @@
 """Seeded random weights (port of ``skillful_nowcasting_tpu/utils/init.py:random_fill_variables``).
 
-Fills a model so a full-width forward has finite O(1) activations without
-downloaded weights:
+Fills a model so a full-width forward (generator and discriminator) has
+finite O(1) activations without downloaded weights:
 
-* conv kernels He-scaled, ``N(0, 2 / fan_in)``; biases 0;
-* BatchNorm scale 1 / bias 0, running mean 0 / var 1;
+* conv (2-D and 3-D) and linear weights He-scaled, ``N(0, 2 / fan_in)``;
+  biases 0;
+* BatchNorm (2-D and the discriminator heads' 1-D) scale 1 / bias 0,
+  running mean 0 / var 1;
 * attention ``gamma`` 0 (reference init);
-* spectral-norm ``(u, v)``: 15 power iterations on the filled kernel, so
+* spectral-norm ``(u, v)``: 15 power iterations on the filled weight, so
   ``sigma`` is a genuine top singular value (random vectors give a near-zero
   sigma and exploding activations).
 """
@@ -27,11 +29,11 @@ from ..ops.spectral_norm import init_uv, kernel_to_weight_mat
 def random_fill(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill ``model`` in place from ``generator`` (a CPU ``torch.Generator``) and return it."""
     for mod in model.modules():
-        if isinstance(mod, nn.BatchNorm2d):
+        if isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
             mod.reset_running_stats()
-        elif isinstance(mod, nn.Conv2d):
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             sn = parametrize.is_parametrized(mod, "weight")
             w = mod.parametrizations.weight.original if sn else mod.weight
             fan_in = w[0].numel()

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from skillful_nowcasting_tpu_torch import DGMR
+from skillful_nowcasting_tpu_torch import DGMR, training
 from skillful_nowcasting_tpu_torch.inference import make_generate
 from skillful_nowcasting_tpu_torch.ops import (
     convgru_rollout,
@@ -134,3 +134,47 @@ def test_default_device_model_runs_a_cpu_batch_on_the_card(dev):
     assert convgru_rollout.launches - gru == 2 * 4  # samples x levels
     assert gblock_fused.launches - gb == 2 * 4 * 2
     assert bool(torch.isfinite(out).all())
+
+
+TRAIN_TINY = dict(TINY, generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
+
+
+def tiny_train_state(dev):
+    model = random_fill(DGMR(**TRAIN_TINY, device=dev), torch.Generator().manual_seed(0))
+    training.desaturate_discriminator(model)
+    x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+    y = torch.rand((2, 2, 1, 64, 64), generator=torch.Generator().manual_seed(2))
+    return training.init_train_state(model), x, y
+
+
+def test_train_step_on_card_launches_no_kernel(dev):
+    """Train mode takes the plain paths (the kernels have no backward); state stays on the card."""
+    state, x, y = tiny_train_state(dev)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    gru, gb = convgru_rollout.launches, gblock_fused.launches
+    metrics = training.make_train_step(state.model)(state, x, y, torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    assert (convgru_rollout.launches, gblock_fused.launches) == (gru, gb)
+    assert len(metrics) == 6 and state.step == 1
+    for name, value in metrics.items():
+        assert value.device.type == "cuda" and bool(torch.isfinite(value)), name
+    after = state.model.state_dict()
+    assert {v.device.type for v in after.values()} == {"cuda"}
+    for key in ("sampler.g1.bn1.running_mean", "sampler.convGRU4.cell.read_gate_conv"
+                ".parametrizations.weight.0._u",
+                "discriminator.temporal_discriminator.fc.parametrizations.weight.original"):
+        assert not torch.equal(after[key], before[key]), key
+
+
+def test_eval_step_launches_both_kernels(dev):
+    state, x, y = tiny_train_state(dev)
+    gru, gb = convgru_rollout.launches, gblock_fused.launches
+    metrics = training.make_eval_step(state.model)(state, x, y, torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    forwards = 2 + TRAIN_TINY["generation_steps"]
+    assert convgru_rollout.launches - gru == 4 * forwards
+    assert gblock_fused.launches - gb == 8 * forwards
+    assert set(metrics) == {"val/d_loss", "val/g_loss", "val/grid_loss", "val/d_loss_first"}
+    for name, value in metrics.items():
+        assert value.device.type == "cuda" and bool(torch.isfinite(value)), name
+    assert state.model.training  # restored

@@ -65,15 +65,19 @@ def test_sn_conv_matches_jax(kernel_size, padding):
 
 
 def test_spectral_norm_and_batchnorm_refuse_train_mode():
+    """Train mode runs: a forward advances the state; reading ``.weight`` never does."""
     conv = ops.conv2d(3, 4, 3, padding=1, spectral_norm=True)
     bn = ops.BatchNorm2d(3)
-    x = torch.zeros(1, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match="eval"):
-        conv(x)
-    with pytest.raises(NotImplementedError, match="eval"):
-        bn(x)
+    x = torch.randn(2, 3, 4, 4, generator=torch.Generator().manual_seed(0))
+    norm = conv.parametrizations.weight[0]
+    u0 = norm._u.clone()
+    conv.weight, bn.running_mean  # plain reads
+    assert torch.equal(norm._u, u0)
+    assert conv(x).shape == (2, 4, 4, 4) and not torch.equal(norm._u, u0)
+    assert bn(x).shape == x.shape and bn.running_mean.abs().sum() > 0
     conv.eval(), bn.eval()
-    assert conv(x).shape == bn(x).shape[:1] + (4, 4, 4)
+    u1 = norm._u.clone()
+    assert conv(x).shape == bn(x).shape[:1] + (4, 4, 4) and torch.equal(norm._u, u1)
 
 
 def test_eval_batchnorm_matches_jax():
@@ -135,10 +139,11 @@ def test_attention_layer_matches_jax(mode):
 
 
 def test_get_conv_layer_ports_standard_only():
+    """"standard" and "3d" are ported; "coord" is not yet."""
     assert get_conv_layer("standard") is ops.conv2d
-    for conv_type in ("coord", "3d"):
-        with pytest.raises(NotImplementedError):
-            get_conv_layer(conv_type)
+    assert get_conv_layer("3d") is ops.conv3d
+    with pytest.raises(NotImplementedError):
+        get_conv_layer("coord")
     with pytest.raises(ValueError):
         get_conv_layer("nope")
 
@@ -148,6 +153,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import skillful_nowcasting_tpu_torch, skillful_nowcasting_tpu_torch.inference\n"
         "import skillful_nowcasting_tpu_torch.hub, skillful_nowcasting_tpu_torch.utils\n"
+        "import skillful_nowcasting_tpu_torch.training, skillful_nowcasting_tpu_torch.losses\n"
+        "import skillful_nowcasting_tpu_torch.models.discriminators\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"

@@ -1,9 +1,9 @@
 """The port's eval nowcast slice vs the JAX DGMR, and the weight carry-across, on the CPU.
 
-A tiny DGMR's variable tree (filled, perturbed) goes through
-``state_dict_from_variables`` into the port with ``strict=True``; the whole
-generator with a fixed latent is held against ``DGMR.apply`` at max-abs 1e-4
-(the end-to-end north star is 1e-3).
+A tiny DGMR's whole variable tree (filled, perturbed; generator and
+discriminator) goes through ``state_dict_from_variables`` into the port with
+``strict=True``; the whole generator with a fixed latent is held against
+``DGMR.apply`` at max-abs 1e-4 (the end-to-end north star is 1e-3).
 """
 
 import jax
@@ -24,21 +24,21 @@ from torch_port_helpers import nchw_to_nhwc, nhwc_to_nchw, perturb, randn, t
 torch.set_num_threads(1)
 
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32)
+TOWERS = dict(num_spatial_layers=2, num_temporal_layers=2)  # 64^2 admits two halvings a tower
 SLICE_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def jax_model_and_variables():
-    model = JaxDGMR(**TINY, num_spatial_layers=2, num_temporal_layers=2)
+    model = JaxDGMR(**TINY, **TOWERS)
     filled = jax.tree.map(np.array, random_fill_variables(abstract_variables(model), 0))
     return model, perturb(filled, 1)
 
 
 @pytest.fixture(scope="module")
 def port_model(jax_model_and_variables):
-    model = DGMR(**TINY, device="cpu")
-    dropped = load_variables(model, jax_model_and_variables[1])
-    assert dropped > 0  # the whole-DGMR tree carries the discriminator
+    model = DGMR(**TINY, **TOWERS, device="cpu")
+    assert load_variables(model, jax_model_and_variables[1]) == 0  # discriminator included
     return model.eval()
 
 
@@ -53,14 +53,21 @@ def test_state_dict_from_variables_equals_export(jax_model_and_variables):
 
 
 def test_load_variables_drops_only_discriminator_keys(jax_model_and_variables):
+    """The whole JAX DGMR tree, discriminator included, loads strictly; nothing is dropped."""
     variables = jax_model_and_variables[1]
-    n_disc = sum(k.startswith("discriminator.") for k in export_torch_state_dict(variables))
-    assert load_variables(DGMR(**TINY, device="cpu"), variables) == n_disc > 0
+    model = DGMR(**TINY, **TOWERS, device="cpu")
+    assert load_variables(model, variables) == 0
+    want = export_torch_state_dict(variables)
+    assert any(k.startswith("discriminator.") for k in want)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(np.array(got[key]), np.asarray(value), err_msg=key)
 
     stray = {"bias": np.zeros(2, np.float32)}
     extra = dict(variables, params=dict(variables["params"], stray=stray))
     with pytest.raises(RuntimeError, match="stray"):
-        load_variables(DGMR(**TINY, device="cpu"), extra)
+        load_variables(DGMR(**TINY, **TOWERS, device="cpu"), extra)
 
 
 def test_generator_matches_jax_with_fixed_z(jax_model_and_variables, port_model):
@@ -114,11 +121,24 @@ def test_config_and_train_mode(port_model):
     assert dgmr.HPARAM_FIELDS == jdgmr.HPARAM_FIELDS
     model = DGMR(**TINY, device="cpu")
     assert model.config == {k: getattr(JaxDGMR(**TINY), k) for k in jdgmr.HPARAM_FIELDS}
-    assert "device" not in model.config
+    assert "device" not in model.config and "num_spatial_layers" not in model.config
     assert {p.device.type for p in model.parameters()} == {"cpu"}
     assert {b.device.type for b in model.buffers()} == {"cpu"}
-    with pytest.raises(NotImplementedError):
-        model.train()(torch.zeros(1, 4, 1, 64, 64))
+    # Train mode runs: batch statistics, and every BN / SN buffer advances.
+    model = DGMR(**TINY, **TOWERS, device="cpu")
+    model.load_state_dict(port_model.state_dict())
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model.train()(x, generator=torch.Generator().manual_seed(1))
+        scores = model.discriminate(torch.cat([x, out], 1), generator=torch.Generator())
+    assert out.shape == (2, 2, 1, 64, 64) and scores.shape == (2, 2, 1)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(scores).all())
+    after = model.state_dict()
+    for key in ("sampler.bn.running_mean", "sampler.convGRU1.cell.output_conv.parametrizations"
+                ".weight.0._u", "discriminator.temporal_discriminator.bn.running_var"):
+        assert not torch.equal(after[key], before[key]), key
+    assert after["sampler.g1.bn1.num_batches_tracked"].item() == TINY["forecast_steps"]
 
 
 def test_default_device_is_the_card(monkeypatch):

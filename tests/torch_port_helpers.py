@@ -50,6 +50,15 @@ def jax_variables(module, *args, seed: int = 0, **kwargs):
     return perturb(filled, seed + 1)
 
 
+def f64(tree):
+    """Every floating leaf of a numpy / JAX tree as float64 (for ``jax.enable_x64`` runs)."""
+    return jax.tree.map(
+        lambda a: np.asarray(a, np.float64)
+        if np.issubdtype(np.asarray(a).dtype, np.floating) else np.asarray(a),
+        tree,
+    )
+
+
 def load_port(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Strictly load a JAX variable tree into a port module and set eval mode."""
     module.load_state_dict(state_dict_from_variables(variables), strict=True)
