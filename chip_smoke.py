@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving and training paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: needs CUDA; prints the card's name and power limit; TF32 off.
 2. Build: compiles the hand-written kernels from ``skillful_nowcasting_tpu_torch/csrc``
    and prints ptxas's registers, shared memory and spills per kernel.
-3. Kernels vs their plain PyTorch versions on the card, at the main path's
-   shapes: max-abs difference <= 1e-4 each, the same bits on a second call;
-   times from CUDA events, beside the bound (the larger of FLOPs at the 3xTF32
-   tensor-core peak and bytes at the memory peak).
+3. Kernels vs their plain PyTorch versions on the card, at the main paths'
+   shapes: a request's batch (B=2) and the tile batch of tiled_nowcast_device
+   (B=16 tiles, N=288 GBlock rows); max-abs difference <= 1e-4 each, the same
+   bits on a second call; times from CUDA events, beside the bound (the
+   larger of FLOPs at the 3xTF32 tensor-core peak and bytes at the memory
+   peak).
 4. The slice at full width: ``DGMR()`` (on the card by default; 256x256, 18
    steps, latent 768, context 384, 6 samples) with seeded random weights
    answers 3 requests through ``make_generate`` from a CPU batch; both
@@ -35,9 +37,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    tensor's max-abs (floored at 1e-6 of its group's largest: a conv bias in
    front of a train-mode BatchNorm has a true gradient of 0) in float64;
    the float32 figure is printed beside it.
+9. Hub round trips at full width: ``save_pretrained`` then
+   ``DGMR.from_pretrained`` onto the card; the same weights with old-style
+   spectral-norm keys and ``generator.*`` copies; the three stacks saved
+   apart and rejoined by ``compose_generator``. Each fixed-latent nowcast is
+   bit-identical to the source model's; bytes and seconds printed.
+10. A 1184x1184 field through both tilers (tile 256, overlap 64, 16 tiles a
+   forward), one latent: 4 / 8 launches per forward, an interior tile of
+   each against a direct forward and the tile the two tilers share against
+   each other (<= 1e-4), ``fetch_stripes=3`` bit-identical to 1, the seam
+   ratio printed.
+11. One MRMS CONUS field, 3500x7000, 18 steps, through
+   ``tiled_nowcast_device``: seconds, tiles/s, peak memory.
+12. ``evaluate_nowcast`` at full width, S=6, B=2, 2 batches: finite metrics.
+13. ``tiled_nowcast_device`` and ``evaluate_nowcast`` at the tiny config on
+   the card and on the CPU, fixed latents: max-abs <= 1e-3.
 
-Any failure exits non-zero without the final line. The last two lines are a
-JSON object of per-kernel results and ``{"ok": true, "device": {...}}``.
+Every path's launches are counted from 0 and must be 4 (rollout) and 8
+(GBlock) per generator forward. Any failure exits non-zero without the final
+line. The last two lines are a JSON object of per-kernel results and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +71,9 @@ KERNEL_TOL = 1e-4
 SLICE_TOL = 1e-3
 TRAIN_TOL = 1e-3
 REQUESTS = 3
+TILE_BATCH = 16  # tiles per forward of tiled_nowcast_device (its default)
+TILED_FIELD = 1184  # = 256 + 5 * 192 - 32: the host tiler's flush-right tile is a device tile
+MRMS = (3500, 7000)  # MRMS CONUS grid
 TRAIN_STEPS = 3
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
             generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
@@ -102,6 +124,29 @@ def gblock_work(n: int, hw: int, cin: int, cout: int) -> tuple[float, float]:
     flops = 2.0 * m * 9 * cin * (cin + cout) + (2.0 * m * cin * cout if sc else 0.0)
     floats = m * (cin + cout) + 9 * cin * (cin + cout) + (cin * cout if sc else 0) + 4 * cin + cout
     return flops, 4.0 * floats
+
+
+def serving_model(torch, dev):
+    """The paper-config ``DGMR()`` on the card: seeded weights, BN stats and gamma perturbed."""
+    from skillful_nowcasting_tpu_torch import DGMR
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    model = DGMR().eval()
+    random_fill(model, torch.Generator().manual_seed(1))
+    with torch.no_grad():  # exercise quirk Q1 and the BN fold
+        pg = torch.Generator().manual_seed(2)
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                noise = lambda sd: (sd * torch.randn(c, generator=pg)).to(dev)  # noqa: E731
+                mod.weight.add_(noise(0.1))
+                mod.bias.add_(noise(0.05))
+                mod.running_mean.add_(noise(0.05))
+                mod.running_var.mul_(torch.exp(noise(0.1)))
+        model.latent_stack.att_block.gamma.fill_(0.5)
+    if {p.device for p in model.parameters()} != {dev}:
+        fail("DGMR() did not build its parameters on the card")
+    return model
 
 
 def layer_times(torch, model, x, card: str) -> None:
@@ -353,6 +398,272 @@ def train_parity(torch, dev) -> None:
         print(f"train rounding (CPU float32 vs float64), {group}: worst {top[0]:.3e} at {top[1]}")
 
 
+def device_tiles(h: int, w: int, tile: int = 256, overlap: int = 64) -> int:
+    """Tiles of ``tiled_nowcast_device``: the field padded by overlap/2 a side, whole strides."""
+    stride = tile - overlap
+    return math.prod(max(0, -(-(n + overlap - tile) // stride)) + 1 for n in (h, w))
+
+
+def host_tiles(h: int, w: int, tile: int = 256, overlap: int = 64) -> int:
+    """Tiles of ``tiled_nowcast``: starts at whole strides, then one flush with the far edge."""
+    stride = tile - overlap
+    return math.prod(max(0, -(-(n - tile) // stride)) + 1 for n in (h, w))
+
+
+def launch_counts(counters) -> dict:
+    return {c.__name__: c.launches for c in counters}
+
+
+def counted_forwards(model, counters):
+    """Reset the launch counters; record ``model``'s forwards (batch sizes) until removed."""
+    for counter in counters:
+        counter.launches = 0
+    calls = []
+    forward = model.forward
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape[0])
+        return forward(*args, **kwargs)
+
+    model.forward = counting
+    return calls
+
+
+def expect_launches(model, counters, calls, forwards: int, what: str) -> dict:
+    """Stop counting forwards; fail unless there were ``forwards``, each with 4 / 8 launches."""
+    del model.forward
+    got = launch_counts(counters)
+    want = {"convgru_rollout": 4 * forwards, "gblock_fused": 8 * forwards}
+    print(f"{what}: {len(calls)} forwards (batches {calls}), launches {got}, expected {want}")
+    if len(calls) != forwards or got != want:
+        fail(f"{what}: {len(calls)} forwards and launches {got}; expected {forwards} and {want}")
+    return got
+
+
+def old_style_keys(sd: dict) -> dict:
+    """The keys of the old ``torch.nn.utils.spectral_norm``, with the derived ``weight``."""
+    import torch
+
+    out = {}
+    tail = ".parametrizations.weight.original"
+    for k, v in sd.items():
+        if k.endswith(tail):
+            mod = k[: -len(tail)]
+            u = sd[f"{mod}.parametrizations.weight.0._u"]
+            vv = sd[f"{mod}.parametrizations.weight.0._v"]
+            out[f"{mod}.weight_orig"], out[f"{mod}.weight_u"], out[f"{mod}.weight_v"] = v, u, vv
+            out[f"{mod}.weight"] = v / torch.dot(u, v.reshape(v.shape[0], -1) @ vv)
+        elif not k.endswith(("._u", "._v")):
+            out[k] = v
+    return out
+
+
+def hub_round_trips(torch, dev, model, card, counters) -> dict:
+    """Phase 9: save and reload the full-width model three ways; each nowcast bit-identical."""
+    import shutil
+    from pathlib import Path
+
+    from skillful_nowcasting_tpu_torch import DGMR, models
+    from skillful_nowcasting_tpu_torch.hub import compose_generator
+    from skillful_nowcasting_tpu_torch.hub import safetensors as st
+    from skillful_nowcasting_tpu_torch.hub.pretrained import reference_state_dict
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_hub"
+    shutil.rmtree(root, ignore_errors=True)
+    x = torch.rand((2, 4, 1, 256, 256), generator=torch.Generator().manual_seed(30)).to(dev)
+    z = torch.randn((1, 8, 8, 8), generator=torch.Generator().manual_seed(31)).to(dev)
+    calls = counted_forwards(model, counters)
+    with torch.inference_mode():
+        want = model(x, z=z)
+
+    def check(label, load, nbytes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        calls.append(x.shape[0])  # the loaded model's forward counts with the source's
+        with torch.inference_mode():
+            got = loaded(x, z=z)
+        err = (got - want).abs().max().item()
+        print(f"hub {label}: {nbytes} bytes of weight files loaded in {seconds:.4f} s "
+              f"onto {card}; nowcast max_abs_err {err:.3e} against the source model")
+        if not torch.equal(got, want):
+            fail(f"hub {label}: the loaded model's nowcast differs from the source's by {err}")
+
+    try:
+        t0 = time.perf_counter()
+        nbytes = model.save_pretrained(str(root / "native"))
+        print(f"hub save_pretrained: {nbytes} bytes in {time.perf_counter() - t0:.4f} s")
+        check("save_pretrained -> DGMR.from_pretrained",
+              lambda: DGMR.from_pretrained(str(root / "native")), nbytes)
+
+        (root / "old_style").mkdir(parents=True)
+        shutil.copy(root / "native" / "config.json", root / "old_style" / "config.json")
+        nbytes = st.save_file(old_style_keys(reference_state_dict(model)),
+                              str(root / "old_style" / "model.safetensors"))
+        check("old-style SN keys + generator.* copies -> DGMR.from_pretrained",
+              lambda: DGMR.from_pretrained(str(root / "old_style")), nbytes)
+
+        stacks = (("conditioning_stack", models.ContextConditioningStack),
+                  ("latent_stack", models.LatentConditioningStack), ("sampler", models.Sampler))
+        nbytes = sum(getattr(model, name).save_pretrained(str(root / name)) for name, _ in stacks)
+        check("three stacks apart -> compose_generator",
+              lambda: compose_generator(*(cls.from_pretrained(str(root / name))
+                                          for name, cls in stacks)), nbytes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"hub": expect_launches(model, counters, calls, 4, "hub nowcasts (source + 3 loaded)")}
+
+
+def tiled_field(torch, dev, model, card, counters) -> dict:
+    """Phase 10: a 1184^2 field through both tilers with one latent, checked tile by tile."""
+    import numpy as np
+
+    from skillful_nowcasting_tpu_torch.inference import (
+        seam_discontinuity,
+        smooth_test_field,
+        tiled_nowcast,
+        tiled_nowcast_device,
+    )
+
+    n, tile, overlap = TILED_FIELD, 256, 64
+    frames = smooth_test_field(4, n, n, 1, seed=5)
+    z = torch.randn((1, 8, 8, 8), generator=torch.Generator().manual_seed(32))
+    out, by_path = {}, {}
+    # The device tiler edge-pads by 32: 7 x 7 tiles at padded starts 0, 192, ..., 1152.
+    # The host tiler: starts 0, 192, ..., 768 and a flush-right 928: 6 x 6 tiles.
+    for name, fn, n_tiles in (("tiled_nowcast_device", tiled_nowcast_device, device_tiles(n, n)),
+                              ("tiled_nowcast", tiled_nowcast, host_tiles(n, n))):
+        calls = counted_forwards(model, counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(model, frames, tile=tile, overlap=overlap, batch_tiles=TILE_BATCH, z=z)
+        seconds = time.perf_counter() - t0
+        by_path[name] = expect_launches(model, counters, calls, -(-n_tiles // TILE_BATCH),
+                                        f"{name} {n}^2, {n_tiles} tiles")
+        if out[name].shape != (model.forecast_steps, 1, n, n) or not np.isfinite(out[name]).all():
+            fail(f"{name}: output {out[name].shape}, finite {np.isfinite(out[name]).all()}")
+        ratio = seam_discontinuity(out[name], tile=tile, overlap=overlap,
+                                   device=name == "tiled_nowcast_device")["ratio"]
+        print(f"{name} {n}^2: {seconds:.4f} s on {card}; seam_discontinuity ratio {ratio:.4f}")
+
+    striped = tiled_nowcast_device(model, frames, tile=tile, overlap=overlap,
+                                   batch_tiles=TILE_BATCH, z=z, fetch_stripes=3)
+    if not np.array_equal(striped, out["tiled_nowcast_device"]):
+        fail("tiled_nowcast_device: fetch_stripes=3 differs from fetch_stripes=1")
+    print("tiled_nowcast_device: fetch_stripes=3 is bit-identical to 1")
+
+    def direct(y0, x0):
+        with torch.inference_mode():
+            crop = torch.from_numpy(frames[None, :, :, y0:y0 + tile, x0:x0 + tile]).to(dev)
+            return model(crop, z=z.to(dev))[0].cpu().numpy()
+
+    # An interior tile of each tiler against its own forward: the device tiler's tile at
+    # padded 192 spans real [160, 416) and writes [192, 384); the host tiler's at 192 writes
+    # [224, 416). The two tilers share one tile, the host's flush-right 928 = the device's
+    # padded 960: on [960, 1152)^2 both write that tile's pixels.
+    d1, d2 = direct(160, 160), direct(192, 192)
+    dev_out, host_out = out["tiled_nowcast_device"], out["tiled_nowcast"]
+    checks = {
+        "tiled_nowcast_device interior tile vs direct forward":
+            np.abs(dev_out[:, :, 192:384, 192:384] - d1[:, :, 32:224, 32:224]).max(),
+        "tiled_nowcast interior tile vs direct forward":
+            np.abs(host_out[:, :, 224:416, 224:416] - d2[:, :, 32:224, 32:224]).max(),
+        "the two tilers on their shared tile [960, 1152)^2":
+            np.abs(dev_out[:, :, 960:1152, 960:1152] - host_out[:, :, 960:1152, 960:1152]).max(),
+    }
+    for label, err in checks.items():
+        print(f"{label}: max_abs_err {err:.3e}")
+        if not err <= KERNEL_TOL:
+            fail(f"{label}: {err} > {KERNEL_TOL}")
+    inner = np.abs(dev_out - host_out)[:, :, 32:-32, 32:-32].max()
+    print(f"the two tilers elsewhere (tiles offset by overlap/2, other forwards): "
+          f"max |difference| {inner:.3e}, not gated")
+    return {f"{k}_{n}": v for k, v in by_path.items()}
+
+
+def mrms_field(torch, model, card, counters) -> dict:
+    """Phase 11: one MRMS CONUS-size field, 3500x7000, 18 steps, through tiled_nowcast_device."""
+    import numpy as np
+
+    from skillful_nowcasting_tpu_torch.inference import tiled_nowcast_device
+
+    h, w = MRMS
+    frames = torch.rand((4, 1, h, w), generator=torch.Generator().manual_seed(40)).numpy()
+    z = torch.randn((1, 8, 8, 8), generator=torch.Generator().manual_seed(41))
+    calls = counted_forwards(model, counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tiled_nowcast_device(model, frames, z=z)  # tile 256, overlap 64, 16 tiles a forward
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_tiles = device_tiles(h, w)  # 19 x 37 = 703: padded to 3712 x 7168 at stride 192
+    launches = expect_launches(model, counters, calls, -(-n_tiles // TILE_BATCH),
+                               f"MRMS {h}x{w}, {n_tiles} tiles")
+    if out.shape != (model.forecast_steps, 1, h, w) or not np.isfinite(out).all():
+        fail(f"MRMS field: output {out.shape}, finite {np.isfinite(out).all()}")
+    print(f"MRMS {h}x{w}, 18 steps: {seconds:.4f} s, {n_tiles / seconds:.2f} tiles/s, "
+          f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated) on {card}")
+    return {"mrms_field": launches}
+
+
+def skill_eval(torch, model, card, counters) -> dict:
+    """Phase 12: evaluate_nowcast at full width, S=6, B=2, 2 batches."""
+    import math
+
+    from skillful_nowcasting_tpu_torch.inference import evaluate_nowcast
+
+    gen = torch.Generator().manual_seed(50)
+    size, steps = model.output_shape, model.forecast_steps
+    batches = [(torch.rand((2, 4, 1, size, size), generator=gen),
+                10.0 * torch.rand((2, steps, 1, size, size), generator=gen)) for _ in range(2)]
+    calls = counted_forwards(model, counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = evaluate_nowcast(model, batches, num_samples=6,
+                               generator=torch.Generator().manual_seed(51))
+    seconds = time.perf_counter() - t0
+    launches = expect_launches(model, counters, calls, 2 * 6, "evaluate_nowcast")
+    print(f"evaluate_nowcast (S=6, B=2, 2 batches): {json.dumps(metrics)}, {seconds:.4f} s "
+          f"on {card}")
+    if not all(math.isfinite(v) for v in metrics.values()) or metrics["batches"] != 2:
+        fail(f"evaluate_nowcast: {metrics}")
+    return {"skill_eval": launches}
+
+
+def serving_parity_tiny(torch, dev) -> None:
+    """Phase 13: the tiled nowcast and the skill loop, card vs CPU, tiny config, fixed latents."""
+    import numpy as np
+
+    from skillful_nowcasting_tpu_torch import DGMR
+    from skillful_nowcasting_tpu_torch.inference import evaluate_nowcast, tiled_nowcast_device
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    cpu = random_fill(DGMR(**TINY, device="cpu"), torch.Generator().manual_seed(60)).eval()
+    card = DGMR(**TINY, device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(61)
+    frames = rng.random((4, 1, 150, 100), np.float32)
+    z = torch.randn((1, 8, 2, 2), generator=torch.Generator().manual_seed(62))
+    kw = dict(tile=64, overlap=16, batch_tiles=5, z=z)
+    on_card, on_cpu = (tiled_nowcast_device(m, frames, **kw) for m in (card, cpu))
+    err = np.abs(on_card - on_cpu).max()
+    batches = [(rng.random((2, 4, 1, 64, 64), np.float32),
+                rng.random((2, 2, 1, 64, 64), np.float32)) for _ in range(2)]
+    skill = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        skill[name] = evaluate_nowcast(m, batches, num_samples=2, thresholds=(0.0, 0.1),
+                                       pools=(1, 4), generator=torch.Generator().manual_seed(63))
+    skill_err = max(abs(skill["card"][k] - skill["cpu"][k]) for k in skill["cpu"])
+    print(f"serving parity (card vs CPU, tiny config, fixed latents): tiled_nowcast_device "
+          f"max_abs_err {err:.3e}, evaluate_nowcast max |difference| {skill_err:.3e}")
+    if not (err <= SLICE_TOL and skill_err <= SLICE_TOL):
+        fail(f"card and CPU serving paths differ: {err}, {skill_err} > {SLICE_TOL}")
+
+
 def main() -> None:
     import torch
 
@@ -399,7 +710,7 @@ def main() -> None:
 
     results = {}
 
-    def compare(name, fn, ref, args, label, reps, work):
+    def compare(name, fn, ref, args, label, reps, work, bucket=None):
         out, want = fn(*args), ref(*args)
         again = fn(*args)
         torch.cuda.synchronize()
@@ -412,7 +723,8 @@ def main() -> None:
         print(
             f"{name} {label}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {work[0] / ms / 1e9:.2f} TFLOP/s, "
-            f"{100 * bound_ms / ms:.1f}% of bound"
+            f"{100 * bound_ms / ms:.1f}% of bound, {work[0] / 1e9:.2f} GFLOP, "
+            f"{work[1] / 1e6:.1f} MB"
         )
         if not err <= KERNEL_TOL:
             fail(f"{name} {label}: kernel differs from its plain version by {err} > {KERNEL_TOL}")
@@ -420,60 +732,56 @@ def main() -> None:
                                       "bound_ms": 0.0, "bound_by": bound_by,
                                       "peak": PEAK_NAME, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        if bucket is not None:
+            r = r.setdefault(bucket, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                      "bound_ms": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound_ms
 
-    batch, steps = 2, 18
-    for t_in, hw, c in ((1, 8, 384), (steps, 16, 192), (steps, 32, 96), (steps, 64, 48)):
-        s = (9 * c) ** -0.5  # gates stay away from saturation
-        args = (
-            rand(t_in, batch, hw, hw, 3 * c),
-            rand(batch, hw, hw, c),
-            rand(3, 3, c, 2 * c, scale=s),
-            rand(3, 3, c, c, scale=s),
-            rand(3 * c, scale=0.1),
-            steps,
-        )
-        compare("convgru_rollout", convgru_rollout, convgru_rollout_reference, args,
-                f"T={steps} gx={tuple(args[0].shape)}", reps=20,
-                work=gru_work(t_in, batch, hw, c, steps))
+    # The serving request's batch (B=2) and the tile batch of tiled_nowcast_device (B=16 tiles,
+    # so N = 16 x 18 GBlock rows): the GRU's split-K plan depends on M = B H W.
+    steps = 18
+    for batch, reps, bucket in ((2, 20, None), (TILE_BATCH, 5, f"tile_batch_{TILE_BATCH}")):
+        for t_in, hw, c in ((1, 8, 384), (steps, 16, 192), (steps, 32, 96), (steps, 64, 48)):
+            s = (9 * c) ** -0.5  # gates stay away from saturation
+            args = (
+                rand(t_in, batch, hw, hw, 3 * c),
+                rand(batch, hw, hw, c),
+                rand(3, 3, c, 2 * c, scale=s),
+                rand(3, 3, c, c, scale=s),
+                rand(3 * c, scale=0.1),
+                steps,
+            )
+            compare("convgru_rollout", convgru_rollout, convgru_rollout_reference, args,
+                    f"T={steps} gx={tuple(args[0].shape)}", reps=reps,
+                    work=gru_work(t_in, batch, hw, c, steps), bucket=bucket)
 
-    n = steps * batch
-    gblock_shapes = ((8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96), (16, 384, 192))
-    for hw, cin, cout in gblock_shapes:
-        args = (
-            rand(n, hw, hw, cin),
-            rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5),
-            rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
-            rand(1, 1, cin, cout, scale=cin ** -0.5),
-            1.0 + rand(cin, scale=0.1),
-            rand(cin, scale=0.1),
-            1.0 + rand(cin, scale=0.1),
-            rand(cin, scale=0.1),
-            rand(cout, scale=0.1),
-            cin != cout,
-        )
-        compare("gblock_fused", gblock_fused, gblock_fused_reference, args,
-                f"x={tuple(args[0].shape)} cout={cout}", reps=20,
-                work=gblock_work(n, hw, cin, cout))
+        n = steps * batch
+        for hw, cin, cout in ((8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96),
+                              (16, 384, 192)):
+            args = (
+                rand(n, hw, hw, cin),
+                rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5),
+                rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                rand(1, 1, cin, cout, scale=cin ** -0.5),
+                1.0 + rand(cin, scale=0.1),
+                rand(cin, scale=0.1),
+                1.0 + rand(cin, scale=0.1),
+                rand(cin, scale=0.1),
+                rand(cout, scale=0.1),
+                cin != cout,
+            )
+            compare("gblock_fused", gblock_fused, gblock_fused_reference, args,
+                    f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
+                    work=gblock_work(n, hw, cin, cout), bucket=bucket)
+            del args
+    torch.cuda.empty_cache()
 
     # 4. The slice at full width through make_generate, from a CPU batch.
-    model = DGMR().eval()
-    random_fill(model, torch.Generator().manual_seed(1))
-    with torch.no_grad():  # exercise quirk Q1 and the BN fold
-        pg = torch.Generator().manual_seed(2)
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
-                c = mod.num_features
-                noise = lambda sd: (sd * torch.randn(c, generator=pg)).to(dev)  # noqa: E731
-                mod.weight.add_(noise(0.1))
-                mod.bias.add_(noise(0.05))
-                mod.running_mean.add_(noise(0.05))
-                mod.running_var.mul_(torch.exp(noise(0.1)))
-        model.latent_stack.att_block.gamma.fill_(0.5)
-    if {p.device for p in model.parameters()} != {dev}:
-        fail("DGMR() did not build its parameters on the card")
+    batch = 2
+    model = serving_model(torch, dev)
     s_n, fs, size = model.num_samples, model.forecast_steps, model.output_shape
     generate = make_generate(model)
     x = torch.rand((batch, 4, 1, size, size), generator=torch.Generator().manual_seed(3))
@@ -525,8 +833,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 7. Training at full width; 8. training parity, card vs CPU.
-    by_path = train_full_width(torch, dev, card, (convgru_rollout, gblock_fused))
+    counters = (convgru_rollout, gblock_fused)
+    by_path = train_full_width(torch, dev, card, counters)
     train_parity(torch, dev)
+
+    # 9-12. The serving user's paths at full width; 13. their parity, card vs CPU.
+    model = serving_model(torch, dev)
+    by_path.update(hub_round_trips(torch, dev, model, card, counters))
+    by_path.update(tiled_field(torch, dev, model, card, counters))
+    by_path.update(mrms_field(torch, model, card, counters))
+    by_path.update(skill_eval(torch, model, card, counters))
+    del model
+    torch.cuda.empty_cache()
+    serving_parity_tiny(torch, dev)
 
     sources = {
         "convgru_rollout": ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
@@ -537,8 +856,8 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name],
-         "launches_by_path": {"serve": launches[name], "train_step": by_path["train_step"][name],
-                              "eval_step": by_path["eval_step"][name]}}
+         "launches_by_path": {"serve": launches[name],
+                              **{path: counts[name] for path, counts in by_path.items()}}}
         for name, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,11 @@ the reference torch state-dict schema. It imports neither JAX nor the JAX
 package.
 
 Ported so far: the eval nowcast path (``inference.make_generate`` ->
-``DGMR.forward`` / ``generate_ensemble``) and the GAN training path
+``DGMR.forward`` / ``generate_ensemble``); the serving user's path (every
+model class's ``from_pretrained`` / ``save_pretrained`` in the reference
+schema, Lightning checkpoints, ``inference.tiled_nowcast`` /
+``tiled_nowcast_device`` for fields of any size, and the paper's skill
+metrics through ``inference.evaluate_nowcast``); and the GAN training path
 (``training.make_train_step`` / ``make_eval_step``, with the discriminators
 and train-mode BatchNorm / spectral norm). Both TPU kernels of the eval path
 have hand-written CUDA counterparts for Hopper in ``csrc/``, built on first

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .hub.pretrained import HubMixin
 from .models.common import ContextConditioningStack, LatentConditioningStack
 from .models.discriminators import Discriminator
 from .models.generators import Sampler, ensemble_forward
@@ -42,7 +43,7 @@ HPARAM_FIELDS = (
 )
 
 
-class DGMR(nn.Module):
+class DGMR(nn.Module, HubMixin):
     """Deep Generative Model of Radar.
 
     ``forward`` maps context frames ``(B, 4, C, H, W)`` to one nowcast sample

@@ -1,4 +1,4 @@
-"""Carry weights of the JAX package across into the port.
+"""Map weights into the port's state dict: from the JAX package, and from the reference's dialects.
 
 :func:`state_dict_from_variables` is the numpy-only logic of
 ``skillful_nowcasting_tpu/hub/export.py:export_torch_state_dict``: it turns a
@@ -7,6 +7,22 @@ state-dict schema (HWIO -> OIHW, ``(in, out)`` -> ``(out, in)``, spectral-norm
 ``parametrizations.weight.original`` / ``.0._u`` / ``.0._v`` keys, BatchNorm
 running statistics). Any array type that ``numpy.asarray`` reads will do, so
 this module needs no JAX.
+
+:func:`convert_reference_state_dict` maps a reference torch state dict onto
+the port's keys (SURVEY.md quirk Q10, the torch side of
+``skillful_nowcasting_tpu/hub/convert.py``):
+
+* parametrization spectral-norm keys are the port's own and pass through;
+* old-style spectral-norm keys of ``torch.nn.utils.spectral_norm``
+  (``X.weight_orig`` / ``X.weight_u`` / ``X.weight_v``) become
+  ``X.parametrizations.weight.original`` / ``.0._u`` / ``.0._v``, and a
+  derived ``X.weight`` beside ``weight_orig`` is dropped;
+* the ``generator.*`` copies of the three shared stacks that the reference
+  DGMR's state dict repeats are dropped
+  (``skillful_nowcasting_tpu/hub/pretrained.py:180-198``);
+* ``num_batches_tracked`` is kept (the port's BatchNorms have it);
+* leaves that the JAX converter ignores (no weight, bias, BN statistic,
+  ``gamma`` or spectral-norm key) are dropped.
 """
 
 from __future__ import annotations
@@ -90,3 +106,49 @@ def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> int:
     """
     model.load_state_dict(state_dict_from_variables(variables), strict=True)
     return 0
+
+
+# Leaf names that carry weights or state in either implementation.
+_KNOWN_LEAVES = {
+    "weight", "bias", "gamma", "running_mean", "running_var", "num_batches_tracked",
+    "weight_orig", "weight_u", "weight_v",
+}
+_OLD_SN = {
+    "weight_orig": "parametrizations.weight.original",
+    "weight_u": "parametrizations.weight.0._u",
+    "weight_v": "parametrizations.weight.0._v",
+}
+
+
+def _strip_duplicate_generator_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop the reference DGMR's ``generator.*`` duplicates of the shared stacks.
+
+    The reference registers ``conditioning_stack``, ``latent_stack`` and
+    ``sampler`` both on DGMR and on its ``generator`` (``dgmr.py:108-123``),
+    so its state dict holds each twice; the port keeps the top-level copies.
+    A state dict with only one of the two (a standalone Generator) passes.
+    """
+    has_dup = any(k.startswith("generator.") for k in sd) and any(
+        not k.startswith(("generator.", "discriminator.")) for k in sd
+    )
+    if not has_dup:
+        return dict(sd)
+    return {k: v for k, v in sd.items() if not k.startswith("generator.")}
+
+
+def convert_reference_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference torch state dict (any dialect above) under the port's keys; values unchanged."""
+    sd = _strip_duplicate_generator_keys(sd)
+    out: Dict[str, Any] = {}
+    for key, value in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        prefix = f"{mod}." if mod else ""
+        if "parametrizations" in key.split("."):
+            out[key] = value
+        elif leaf in _OLD_SN:
+            out[prefix + _OLD_SN[leaf]] = value
+        elif leaf == "weight" and f"{prefix}weight_orig" in sd:
+            continue  # derived W / sigma of the old-style spectral norm
+        elif leaf in _KNOWN_LEAVES:
+            out[key] = value
+    return out

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..hub.pretrained import HubMixin
 from ..layers.attention import AttentionLayer
 from ..layers.utils import get_conv_layer
 from ..ops import (
@@ -168,7 +169,7 @@ class LBlock(nn.Module):
         return h + sc
 
 
-class ContextConditioningStack(nn.Module):
+class ContextConditioningStack(nn.Module, HubMixin):
     """Encode context frames ``(B, T, C, H, W)`` into 4 conditioning states.
 
     Returns NCHW states ordered largest spatial first:
@@ -185,6 +186,10 @@ class ContextConditioningStack(nn.Module):
         conv_type: str = "standard",
     ):
         super().__init__()
+        self.input_channels = input_channels
+        self.output_channels = output_channels
+        self.num_context_steps = num_context_steps
+        self.conv_type = conv_type
         conv = get_conv_layer(conv_type)
         oc, ic, ncs = output_channels, input_channels, num_context_steps
         self.d1 = DBlock(4 * ic, ((oc // 4) * ic) // ncs, conv_type)
@@ -209,7 +214,7 @@ class ContextConditioningStack(nn.Module):
         return tuple(states)
 
 
-class LatentConditioningStack(nn.Module):
+class LatentConditioningStack(nn.Module, HubMixin):
     """Draw and transform the latent z.
 
     Quirk Q2: z has batch **1** whatever the input batch, so every batch
@@ -226,6 +231,7 @@ class LatentConditioningStack(nn.Module):
     ):
         super().__init__()
         self.shape = tuple(shape)
+        self.output_channels = output_channels
         c, oc = shape[0], output_channels
         self.conv_3x3 = conv2d(c, c, 3, padding=1, spectral_norm=True)
         self.l_block1 = LBlock(c, oc // 32)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..hub.pretrained import HubMixin
 from ..ops import BatchNorm1d, avg_pool, dense, space_to_depth
 from .common import DBlock
 
@@ -28,7 +29,7 @@ def _head(rep: torch.Tensor, steps: int, bn: nn.Module, fc: nn.Module) -> torch.
     return rep.unflatten(0, (steps, -1)).sum(dim=0)[:, None, :]
 
 
-class SpatialDiscriminator(nn.Module):
+class SpatialDiscriminator(nn.Module, HubMixin):
     """Per-frame discriminator on sampled frames; ``(B, T, C, H, W)`` -> ``(B, 1, 1)``."""
 
     def __init__(
@@ -39,7 +40,10 @@ class SpatialDiscriminator(nn.Module):
         conv_type: str = "standard",
     ):
         super().__init__()
+        self.input_channels = input_channels
         self.num_timesteps = num_timesteps
+        self.num_layers = num_layers
+        self.conv_type = conv_type
         ic, chn = input_channels, 24
         self.d1 = DBlock(4 * ic, 2 * chn * ic, conv_type, first_relu=False)
         blocks = []
@@ -68,11 +72,14 @@ class SpatialDiscriminator(nn.Module):
         return _head(self.d6(rep, s), s, self.bn, self.fc)
 
 
-class TemporalDiscriminator(nn.Module):
+class TemporalDiscriminator(nn.Module, HubMixin):
     """3-D stem and a per-remaining-timestep tower; ``(B, T, C, H, W)`` -> ``(B, 1, 1)``."""
 
     def __init__(self, input_channels: int = 12, num_layers: int = 3, conv_type: str = "standard"):
         super().__init__()
+        self.input_channels = input_channels
+        self.num_layers = num_layers
+        self.conv_type = conv_type
         ic, chn = input_channels, 48
         self.d1 = DBlock(4 * ic, chn * ic, conv_type="3d", first_relu=False)
         self.d2 = DBlock(chn * ic, 2 * chn * ic, conv_type="3d")
@@ -96,7 +103,7 @@ class TemporalDiscriminator(nn.Module):
         return _head(self.d_last(x, t), t, self.bn, self.fc)
 
 
-class Discriminator(nn.Module):
+class Discriminator(nn.Module, HubMixin):
     """Spatial and temporal scores concatenated: ``(B, 2, 1)``, spatial first (quirk Q7)."""
 
     def __init__(
@@ -108,6 +115,11 @@ class Discriminator(nn.Module):
         num_temporal_layers: int = 3,
     ):
         super().__init__()
+        self.input_channels = input_channels
+        self.num_spatial_frames = num_spatial_frames
+        self.conv_type = conv_type
+        self.num_spatial_layers = num_spatial_layers
+        self.num_temporal_layers = num_temporal_layers
         self.spatial_discriminator = SpatialDiscriminator(
             input_channels, num_spatial_frames, num_spatial_layers, conv_type
         )

@@ -20,12 +20,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..hub.pretrained import HubMixin
 from ..layers.convgru import ConvGRU
 from ..ops import BatchNorm2d, conv2d, depth_to_space
 from .common import GBlock, UpsampleGBlock, draw_latents
 
 
-class Sampler(nn.Module):
+class Sampler(nn.Module, HubMixin):
     """Recurrent decoder from conditioning states and latent.
 
     ``forward(states, latent)`` takes the four NCHW conditioning states
@@ -42,6 +43,9 @@ class Sampler(nn.Module):
     ):
         super().__init__()
         self.forecast_steps = forecast_steps
+        self.latent_channels = latent_channels
+        self.context_channels = context_channels
+        self.output_channels = output_channels
         lc, cc = latent_channels, context_channels
         suffixes = ("", "_2", "_3", "_4")
         for i in range(4):
@@ -118,7 +122,7 @@ def ensemble_forward(
     return out.unflatten(0, (s, b))
 
 
-class Generator(nn.Module):
+class Generator(nn.Module, HubMixin):
     """``sampler(conditioning_stack(x), latent_stack(x))``."""
 
     def __init__(self, conditioning_stack: nn.Module, latent_stack: nn.Module, sampler: nn.Module):

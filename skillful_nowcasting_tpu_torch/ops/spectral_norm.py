@@ -71,8 +71,12 @@ class SpectralNorm(nn.Module):
     def __init__(self, weight: torch.Tensor, eps: float = 1e-12):
         super().__init__()
         self.eps = eps
-        with torch.no_grad():
-            u, v = init_uv(kernel_to_weight_mat(weight), eps)
+        wm = kernel_to_weight_mat(weight)
+        if wm.is_meta:  # shapes only (``hub.from_pretrained``): the checkpoint supplies u, v
+            u, v = wm.new_empty(wm.shape[0]), wm.new_empty(wm.shape[1])
+        else:
+            with torch.no_grad():
+                u, v = init_uv(wm, eps)
         self.register_buffer("_u", u)
         self.register_buffer("_v", v)
 

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from skillful_nowcasting_tpu_torch import DGMR, training
-from skillful_nowcasting_tpu_torch.inference import make_generate
+from skillful_nowcasting_tpu_torch.inference import (
+    evaluate_nowcast,
+    make_generate,
+    tiled_nowcast_device,
+)
 from skillful_nowcasting_tpu_torch.ops import (
     convgru_rollout,
     convgru_rollout_reference,
@@ -86,6 +90,29 @@ def test_gblock_fused_kernel_matches_plain(dev, n, h, w, cin, cout):
     want = gblock_fused_reference(*args)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
+
+
+# The tile batch of tiled_nowcast_device: 16 tiles a forward, so the GRU runs
+# at B=16 (M = 16 H W, another split-K plan) and the GBlock at N = 16 x 18.
+@pytest.mark.parametrize("hw,c", [(8, 384), (16, 192), (32, 96), (64, 48)])
+def test_convgru_rollout_kernel_at_the_tile_batch(dev, hw, c):
+    args = gru_inputs(np.random.default_rng(5), 1 if c == 384 else 3, 16, hw, c, dev)
+    got = convgru_rollout(*args, n_steps=3)
+    want = convgru_rollout_reference(*args, n_steps=3)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, convgru_rollout(*args, n_steps=3))
+
+
+@pytest.mark.parametrize(
+    "hw,cin,cout", [(8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96), (16, 384, 192)]
+)
+def test_gblock_fused_kernel_at_the_tile_batch(dev, hw, cin, cout):
+    args = gblock_inputs(np.random.default_rng(6), 288, hw, hw, cin, cout, dev)
+    got = gblock_fused(*args)
+    want = gblock_fused_reference(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 def test_kernels_are_deterministic(dev):
@@ -178,3 +205,42 @@ def test_eval_step_launches_both_kernels(dev):
     for name, value in metrics.items():
         assert value.device.type == "cuda" and bool(torch.isfinite(value)), name
     assert state.model.training  # restored
+
+
+def test_from_pretrained_onto_the_card_is_bit_identical(dev, tmp_path):
+    src = random_fill(DGMR(**TRAIN_TINY, device="cpu"), torch.Generator().manual_seed(5)).eval()
+    src.save_pretrained(str(tmp_path))
+    towers = dict(num_spatial_layers=2, num_temporal_layers=2)
+    got = DGMR.from_pretrained(str(tmp_path), **towers)  # the card by default
+    assert not got.training
+    want = src.state_dict()
+    for key, value in got.state_dict().items():
+        assert value.device.type == "cuda", key
+        assert torch.equal(value.cpu(), want[key]), key
+
+
+def test_tiled_nowcast_device_on_card_matches_cpu(dev):
+    model = random_fill(DGMR(**TINY, device="cpu").eval(), torch.Generator().manual_seed(0))
+    frames = np.random.default_rng(3).random((4, 1, 150, 100), np.float32)
+    z = torch.randn((1, 8, 2, 2), generator=torch.Generator().manual_seed(4))
+    kwargs = dict(tile=64, overlap=16, batch_tiles=5, z=z)
+    want = tiled_nowcast_device(model, frames, **kwargs)
+    gru, gb = convgru_rollout.launches, gblock_fused.launches
+    got = tiled_nowcast_device(model.to(dev), frames, **kwargs, fetch_stripes=3)
+    assert convgru_rollout.launches - gru == 4 * 3  # 12 tiles in batches of 5, 5, 2
+    assert gblock_fused.launches - gb == 8 * 3
+    assert np.abs(got - want).max() <= 1e-3
+    np.testing.assert_array_equal(tiled_nowcast_device(model, frames, **kwargs), got)
+
+
+def test_evaluate_nowcast_on_card_matches_cpu(dev):
+    model = random_fill(DGMR(**TINY, device="cpu").eval(), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    batches = [(rng.random((2, 4, 1, 64, 64), np.float32),
+                rng.random((2, 2, 1, 64, 64), np.float32)) for _ in range(2)]
+    kwargs = dict(num_samples=2, thresholds=(0.0, 0.1), pools=(1, 4))
+    want = evaluate_nowcast(model, batches, generator=torch.Generator().manual_seed(1), **kwargs)
+    model.to(dev)
+    got = evaluate_nowcast(model, batches, generator=torch.Generator().manual_seed(1), **kwargs)
+    for name, value in want.items():
+        assert abs(got[name] - value) <= 1e-3, name

@@ -155,6 +155,10 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.hub, skillful_nowcasting_tpu_torch.utils\n"
         "import skillful_nowcasting_tpu_torch.training, skillful_nowcasting_tpu_torch.losses\n"
         "import skillful_nowcasting_tpu_torch.models.discriminators\n"
+        "import skillful_nowcasting_tpu_torch.metrics\n"
+        "import skillful_nowcasting_tpu_torch.hub.pretrained\n"
+        "import skillful_nowcasting_tpu_torch.hub.lightning\n"
+        "import skillful_nowcasting_tpu_torch.hub.safetensors\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
