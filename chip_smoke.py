@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16 and training paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
@@ -8,10 +8,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and prints ptxas's registers, shared memory and spills per kernel.
 3. Kernels vs their plain PyTorch versions on the card, at the main paths'
    shapes: a request's batch (B=2) and the tile batch of tiled_nowcast_device
-   (B=16 tiles, N=288 GBlock rows); max-abs difference <= 1e-4 each, the same
-   bits on a second call; times from CUDA events, beside the bound (the
-   larger of FLOPs at the 3xTF32 tensor-core peak and bytes at the memory
-   peak).
+   (B=16 tiles, N=288 GBlock rows), each in f32 and in bf16; max-abs
+   difference <= 1e-4 (f32) or <= 2^-7 of max|plain| (bf16: one bf16 ulp of
+   the largest output), the same bits on a second call; times from CUDA
+   events, beside the bound (the larger of FLOPs at the tensor-core peak,
+   3xTF32 for f32 and bf16 for bf16, and bytes at the memory peak).
 4. The slice at full width: ``DGMR()`` (on the card by default; 256x256, 18
    steps, latent 768, context 384, 6 samples) with seeded random weights
    answers 3 requests through ``make_generate`` from a CPU batch; both
@@ -52,10 +53,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 12. ``evaluate_nowcast`` at full width, S=6, B=2, 2 batches: finite metrics.
 13. ``tiled_nowcast_device`` and ``evaluate_nowcast`` at the tiny config on
    the card and on the CPU, fixed latents: max-abs <= 1e-3.
+14. The serving artifact at full width (paper config, B=2, S=6, f32):
+   ``serving.save_exported`` then ``load_exported(...).place()``; export,
+   save and load seconds and bytes; 3 requests through
+   ``NowcastServer.generate`` (72 / 144 launches); the first against
+   ``make_generate(model)(x, torch.Generator().manual_seed(seed))`` (max-abs
+   <= 1e-6, bit equality printed); one sampler weight replaced changes the
+   output; a ``compute_dtype=torch.bfloat16`` artifact returns finite f32.
+15. bf16 at full width: 3 requests of B=2, S=6 from a bf16 batch (frames/s,
+   latency, 4 / 8 bf16 launches a forward and no f32 launch); bf16 against
+   f32 on fixed latents below 0.15 of scale; one MRMS 3500x7000 field through
+   ``tiled_nowcast_device(dtype=torch.bfloat16)``; a synchronized bf16 layer
+   breakdown.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
-(GBlock) per generator forward. Any failure exits non-zero without the final
-line. The last two lines are a JSON object of per-kernel results and
+(GBlock) per generator forward, all of the path's dtype. Any failure exits
+non-zero without the final line. The last two lines are a JSON object of
+per-kernel results (f32 and bf16 variants of both kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +82,9 @@ import sys
 import time
 
 KERNEL_TOL = 1e-4
+KERNEL_TOL_BF16 = 2.0**-7  # of max|plain|: one bf16 ulp of the largest output
+BF16_TOL = 0.15  # bf16 vs f32 nowcast, of max(max|f32|, 1e-3): the JAX suite's bar
+ARTIFACT_TOL = 1e-6
 SLICE_TOL = 1e-3
 TRAIN_TOL = 1e-3
 REQUESTS = 3
@@ -79,9 +96,26 @@ TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_chan
             generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
 # Published H100 SXM peaks (dense). 3xTF32 does three TF32 products per f32 product.
 PEAK_3XTF32 = 495e12 / 3
+PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-PEAK_NAME = "3xTF32 tensor cores, 495/3 TFLOP/s; HBM 3.35 TB/s"
+PEAK_NAME = {"f32": "3xTF32 tensor cores, 495/3 TFLOP/s; HBM 3.35 TB/s",
+             "bf16": "bf16 tensor cores, 989 TFLOP/s; HBM 3.35 TB/s"}
+
+
+class Counter:
+    """One kernel variant's launch count: an attribute of its wrapper, raised per launch."""
+
+    def __init__(self, fn, attr: str, name: str):
+        self.fn, self.attr, self.__name__ = fn, attr, name
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.fn, self.attr, value)
 
 
 def fail(msg: str) -> None:
@@ -103,27 +137,37 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least milliseconds for the work at the card's peaks, and which peak binds."""
-    by_ops, by_bytes = flops / PEAK_3XTF32, nbytes / PEAK_BYTES
-    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+def bound(flops: float, nbytes: float, kind: str = "f32") -> tuple[float, float]:
+    """Least milliseconds for the work by operations and by bytes, at the card's peaks.
+
+    The bound is the larger of the two; f32 products run as 3xTF32, bf16 ones
+    at the bf16 tensor-core rate.
+    """
+    peak = PEAK_3XTF32 if kind == "f32" else PEAK_BF16
+    return 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
 
 
-def gru_work(t_in: int, b: int, hw: int, c: int, steps: int) -> tuple[float, float]:
-    """FLOPs and bytes of one rollout: 18 steps of conv3(h, k_ru) and conv3(r*h, k_c)."""
+def gru_work(t_in: int, b: int, hw: int, c: int, steps: int, elem: int = 4):
+    """FLOPs and bytes of one rollout: 18 steps of conv3(h, k_ru) and conv3(r*h, k_c).
+
+    Every operand has ``elem`` bytes an element (4 f32, 2 bf16).
+    """
     m = b * hw * hw
     flops = steps * 2.0 * m * 9 * c * 3 * c
-    floats = 9 * c * 3 * c + 3 * c + t_in * m * 3 * c + m * c + steps * m * c
-    return flops, 4.0 * floats
+    values = 9 * c * 3 * c + 3 * c + t_in * m * 3 * c + m * c + steps * m * c
+    return flops, elem * values
 
 
-def gblock_work(n: int, hw: int, cin: int, cout: int) -> tuple[float, float]:
-    """FLOPs and bytes of one eval GBlock: two 3x3 convs (+ the 1x1 shortcut)."""
+def gblock_work(n: int, hw: int, cin: int, cout: int, elem: int = 4):
+    """FLOPs and bytes of one eval GBlock: two 3x3 convs (+ the 1x1 shortcut).
+
+    x, out and the kernels have ``elem`` bytes an element; the affines are f32.
+    """
     m = n * hw * hw
     sc = cin != cout
     flops = 2.0 * m * 9 * cin * (cin + cout) + (2.0 * m * cin * cout if sc else 0.0)
-    floats = m * (cin + cout) + 9 * cin * (cin + cout) + (cin * cout if sc else 0) + 4 * cin + cout
-    return flops, 4.0 * floats
+    values = m * (cin + cout) + 9 * cin * (cin + cout) + (cin * cout if sc else 0)
+    return flops, elem * values + 4.0 * (4 * cin + cout)
 
 
 def serving_model(torch, dev):
@@ -149,7 +193,7 @@ def serving_model(torch, dev):
     return model
 
 
-def layer_times(torch, model, x, card: str) -> None:
+def layer_times(torch, model, x, card: str, tag: str = "") -> None:
     """One per-sample request with every layer bracketed by synchronize(); shares of its wall."""
     import skillful_nowcasting_tpu_torch.layers.convgru as convgru_mod
     import skillful_nowcasting_tpu_torch.models.common as common_mod
@@ -200,8 +244,9 @@ def layer_times(torch, model, x, card: str) -> None:
             mod.forward = fwd
         convgru_mod.convgru_rollout, common_mod.gblock_fused = rollout, gblock
     for name, sec in totals.items():
-        print(f"layer {name}: {1e3 * sec:.3f} ms, {100 * sec / wall:.1f}% of the synchronized wall")
-    print(f"layer wall: {1e3 * wall:.3f} ms on {card}")
+        print(f"layer{tag} {name}: {1e3 * sec:.3f} ms, "
+              f"{100 * sec / wall:.1f}% of the synchronized wall")
+    print(f"layer{tag} wall: {1e3 * wall:.3f} ms ({x.dtype}) on {card}")
 
 
 def phase_split(torch, training, run_step) -> dict:
@@ -317,7 +362,7 @@ def train_full_width(torch, dev, card, launch_counters) -> dict:
     eval_s = time.perf_counter() - t0
     eval_launches = {c.__name__: c.launches for c in launch_counters}
     forwards = 2 + model.generation_steps
-    expected = {"convgru_rollout": 4 * forwards, "gblock_fused": 8 * forwards}
+    expected = expected_launches(forwards)
     print(f"eval step: {json.dumps({k: v.item() for k, v in val.items()})}, "
           f"{eval_s:.4f} s, launches {eval_launches}, expected {expected}")
     if eval_launches != expected:
@@ -414,6 +459,13 @@ def launch_counts(counters) -> dict:
     return {c.__name__: c.launches for c in counters}
 
 
+def expected_launches(forwards: int, bf16: bool = False) -> dict:
+    """4 rollout and 8 GBlock launches per generator forward, all of one dtype's kernels."""
+    on, off = ("_bf16", "") if bf16 else ("", "_bf16")
+    return {f"convgru_rollout{on}": 4 * forwards, f"gblock_fused{on}": 8 * forwards,
+            f"convgru_rollout{off}": 0, f"gblock_fused{off}": 0}
+
+
 def counted_forwards(model, counters):
     """Reset the launch counters; record ``model``'s forwards (batch sizes) until removed."""
     for counter in counters:
@@ -429,11 +481,11 @@ def counted_forwards(model, counters):
     return calls
 
 
-def expect_launches(model, counters, calls, forwards: int, what: str) -> dict:
+def expect_launches(model, counters, calls, forwards: int, what: str, bf16: bool = False) -> dict:
     """Stop counting forwards; fail unless there were ``forwards``, each with 4 / 8 launches."""
     del model.forward
     got = launch_counts(counters)
-    want = {"convgru_rollout": 4 * forwards, "gblock_fused": 8 * forwards}
+    want = expected_launches(forwards, bf16)
     print(f"{what}: {len(calls)} forwards (batches {calls}), launches {got}, expected {want}")
     if len(calls) != forwards or got != want:
         fail(f"{what}: {len(calls)} forwards and launches {got}; expected {forwards} and {want}")
@@ -664,6 +716,184 @@ def serving_parity_tiny(torch, dev) -> None:
         fail(f"card and CPU serving paths differ: {err}, {skill_err} > {SLICE_TOL}")
 
 
+def artifact_full_width(torch, dev, model, card, counters) -> dict:
+    """Phase 14: the serving artifact of the paper config, B=2, S=6, f32 (and a bf16 one)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from skillful_nowcasting_tpu_torch import serving
+    from skillful_nowcasting_tpu_torch.inference import make_generate
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_artifact"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    batch = 2
+    x = torch.rand((batch, 4, 1, model.output_shape, model.output_shape),
+                   generator=torch.Generator().manual_seed(70))
+    try:
+        path = str(root / "dgmr.dgmrx")
+        t0 = time.perf_counter()
+        meta = serving.save_exported(path, model, batch_size=batch)
+        total = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server = serving.load_exported(path).place(dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"artifact (f32, B={batch}, S={meta['num_samples']}): export "
+              f"{meta['export_seconds']:.4f} s, save {total - meta['export_seconds']:.4f} s, "
+              f"load + place {load_s:.4f} s, {nbytes} bytes, {len(meta['param_names'])} weights "
+              f"on {card}; design: {meta['design']}")
+
+        for counter in counters:
+            counter.launches = 0
+        seconds, outs = [], []
+        for i in range(REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(server.generate(x, seed=80 + i))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = launch_counts(counters)
+        expected = expected_launches(REQUESTS * meta["num_samples"])
+        print(f"artifact: {REQUESTS} requests, seconds {[round(s, 4) for s in seconds]}, "
+              f"launches {launches}, expected {expected}")
+        if launches != expected:
+            fail(f"artifact requests: launches {launches} differ from {expected}")
+        out = outs[0]
+        if (list(out.shape) != meta["output_shape"] or out.dtype != torch.float32
+                or not bool(torch.isfinite(out).all())):
+            fail(f"artifact: output {tuple(out.shape)} {out.dtype}, expected {meta['output_shape']}")
+        want = make_generate(model)(x, torch.Generator().manual_seed(80))
+        err = (out - want).abs().max().item()
+        print(f"artifact generate(x, seed=80) vs make_generate(model)(x, manual_seed(80)): "
+              f"max_abs_err {err:.3e}, bit-identical {torch.equal(out, want)}")
+        if not err <= ARTIFACT_TOL:
+            fail(f"artifact and make_generate differ by {err} > {ARTIFACT_TOL}")
+
+        # One forward, the program against the eager model, alternating: the synchronized
+        # wall and the host's share (until the call returns, before the synchronize).
+        xd = x.to(dev)
+        zd = torch.randn((1, *model.latent_stack.shape),
+                         generator=torch.Generator().manual_seed(81)).to(dev)
+        timing = {"eager": [], "artifact": []}
+        calls = {"eager": lambda: model(xd, z=zd),
+                 "artifact": lambda: server.call(xd, zd, server.weights)}
+        with torch.inference_mode():
+            for name in ("eager", "artifact", "artifact", "eager") * 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls[name]()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                timing[name].append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)))
+        for name, runs in timing.items():
+            print(f"artifact diagnostics, one B={batch} forward, {name}: host ms "
+                  f"{[round(h, 2) for h, _ in runs]}, synchronized wall ms "
+                  f"{[round(w, 2) for _, w in runs]} on {card}")
+
+        names = meta["param_names"]
+        idx = max((i for i, n in enumerate(names) if n.startswith("sampler.")),
+                  key=lambda i: server.weights[i].numel())
+        saved = server.weights[idx]
+        server.weights[idx] = saved + 0.05
+        moved = (server.generate(x, seed=80) - out).abs().max().item()
+        server.weights[idx] = saved
+        print(f"artifact: {names[idx]} + 0.05 (no new export) moves the nowcast by {moved:.3e}")
+        if not moved > 0:
+            fail("artifact: replacing a sampler weight did not change the nowcast")
+
+        path16 = str(root / "dgmr_bf16.dgmrx")
+        meta16 = serving.save_exported(path16, model, batch_size=batch,
+                                       compute_dtype=torch.bfloat16)
+        server16 = serving.load_exported(path16).place(dev)
+        for counter in counters:
+            counter.launches = 0
+        out16 = server16.generate(x, seed=80)
+        launches16 = launch_counts(counters)
+        rel = (out16 - out).abs().max().item() / max(out.abs().max().item(), 1e-3)
+        print(f"artifact (compute_dtype bfloat16): export {meta16['export_seconds']:.4f} s, "
+              f"{os.path.getsize(path16)} bytes; output {out16.dtype}, finite "
+              f"{bool(torch.isfinite(out16).all())}, launches {launches16}, "
+              f"max|bf16 - f32| / scale {rel:.4f}")
+        if out16.dtype != torch.float32 or not bool(torch.isfinite(out16).all()):
+            fail(f"bf16 artifact: output {out16.dtype}, not finite f32")
+        if launches16 != expected_launches(meta16["num_samples"], bf16=True):
+            fail(f"bf16 artifact: launches {launches16}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"artifact": launches, "artifact_bf16": launches16}
+
+
+def bf16_full_width(torch, dev, model, card, counters):
+    """Phase 15: bf16 requests, bf16 against f32, a bf16 MRMS field, a bf16 layer breakdown."""
+    import numpy as np
+
+    from skillful_nowcasting_tpu_torch.inference import make_generate, tiled_nowcast_device
+
+    batch = 2
+    s_n, fs, size = model.num_samples, model.forecast_steps, model.output_shape
+    x = torch.rand((batch, 4, 1, size, size), generator=torch.Generator().manual_seed(90))
+    generate = make_generate(model)
+    for counter in counters:
+        counter.launches = 0
+    seconds = []
+    for i in range(REQUESTS):
+        t0 = time.perf_counter()
+        out = generate(x.bfloat16(), torch.Generator().manual_seed(100 + i))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if (tuple(out.shape) != (s_n, batch, fs, 1, size, size) or out.dtype != torch.bfloat16
+                or not bool(torch.isfinite(out).all())):
+            fail(f"bf16 request {i}: output {tuple(out.shape)} {out.dtype}, or not finite")
+    launches = launch_counts(counters)
+    expected = expected_launches(REQUESTS * s_n, bf16=True)
+    print(f"bf16 launches: {launches}, expected {expected}")
+    if launches != expected:
+        fail(f"the bf16 path's kernel launches {launches} differ from {expected}")
+    frames = s_n * batch * fs
+    print(f"bf16 slice: {REQUESTS} requests of {s_n} samples x {batch} x {fs} frames at "
+          f"{size}^2, seconds {[round(s, 4) for s in seconds]}, frames/s "
+          f"{[round(frames / s, 2) for s in seconds]} on {card}")
+
+    z = torch.randn((1, *model.latent_stack.shape), generator=torch.Generator().manual_seed(91))
+    with torch.inference_mode():
+        y32 = model(x.to(dev), z=z.to(dev))
+        y16 = model(x.to(dev).bfloat16(), z=z.to(dev)).float()
+    rel = (y16 - y32).abs().max().item() / max(y32.abs().max().item(), 1e-3)
+    print(f"bf16 vs f32 (B=2, fixed z): max|bf16 - f32| / max(max|f32|, 1e-3) = {rel:.4f} "
+          f"(limit {BF16_TOL}); max|f32| {y32.abs().max().item():.4f}")
+    if not rel < BF16_TOL:
+        fail(f"bf16 and f32 nowcasts differ by {rel} of scale >= {BF16_TOL}")
+
+    h, w = MRMS
+    frames_np = torch.rand((4, 1, h, w), generator=torch.Generator().manual_seed(40)).numpy()
+    zt = torch.randn((1, 8, 8, 8), generator=torch.Generator().manual_seed(41))
+    calls = counted_forwards(model, counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field = tiled_nowcast_device(model, frames_np, z=zt, dtype=torch.bfloat16)
+    mrms_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_tiles = device_tiles(h, w)
+    mrms = expect_launches(model, counters, calls, -(-n_tiles // TILE_BATCH),
+                           f"MRMS bf16 {h}x{w}, {n_tiles} tiles", bf16=True)
+    if field.shape != (fs, 1, h, w) or field.dtype != np.float32 or not np.isfinite(field).all():
+        fail(f"bf16 MRMS field: output {field.shape} {field.dtype}, finite "
+             f"{np.isfinite(field).all()}")
+    print(f"MRMS bf16 {h}x{w}, 18 steps: {mrms_s:.4f} s, {n_tiles / mrms_s:.2f} tiles/s, "
+          f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated), f32 output, "
+          f"on {card}")
+    del field
+
+    layer_times(torch, model, x.to(dev).bfloat16(), card, tag=" bf16")
+    return launches, {"mrms_field_bf16": mrms}
+
+
 def main() -> None:
     import torch
 
@@ -702,81 +932,90 @@ def main() -> None:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
 
-    # 3. Kernels vs plain versions, at the main path's shapes.
+    # 3. Kernels vs plain versions, at the main path's shapes, in f32 and in bf16.
     gen = torch.Generator().manual_seed(0)
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(dev)
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
 
     results = {}
 
-    def compare(name, fn, ref, args, label, reps, work, bucket=None):
+    def compare(name, fn, ref, args, label, reps, work, kind, bucket=None):
         out, want = fn(*args), ref(*args)
         again = fn(*args)
         torch.cuda.synchronize()
-        err = (out - want).abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = KERNEL_TOL if kind == "f32" else KERNEL_TOL_BF16 * scale
         if not torch.equal(out, again):
             fail(f"{name} {label}: two calls on the same inputs gave different bits")
         ms = time_ms(torch, lambda: fn(*args), reps)
         plain_ms = time_ms(torch, lambda: ref(*args), reps)
-        bound_ms, bound_by = bound(*work)
+        ops_ms, bytes_ms = bound(*work, kind)
+        bound_ms = max(ops_ms, bytes_ms)
         print(
-            f"{name} {label}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {work[0] / ms / 1e9:.2f} TFLOP/s, "
-            f"{100 * bound_ms / ms:.1f}% of bound, {work[0] / 1e9:.2f} GFLOP, "
-            f"{work[1] / 1e6:.1f} MB"
+            f"{name} {label}: max_abs_err {err:.3e} ({err / max(scale, 1e-30):.3e} of max|plain|, "
+            f"limit {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+            f"{work[0] / ms / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound, "
+            f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB"
         )
-        if not err <= KERNEL_TOL:
-            fail(f"{name} {label}: kernel differs from its plain version by {err} > {KERNEL_TOL}")
+        if not err <= tol:
+            fail(f"{name} {label}: kernel differs from its plain version by {err} > {tol}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                      "bound_ms": 0.0, "bound_by": bound_by,
-                                      "peak": PEAK_NAME, "library_ms": None})
+                                      "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                                      "peak": PEAK_NAME[kind], "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if bucket is not None:
             r = r.setdefault(bucket, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                      "bound_ms": 0.0})
+                                      "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound_ms
+        r["ops_ms"] += ops_ms
+        r["bytes_ms"] += bytes_ms
 
     # The serving request's batch (B=2) and the tile batch of tiled_nowcast_device (B=16 tiles,
-    # so N = 16 x 18 GBlock rows): the GRU's split-K plan depends on M = B H W.
+    # so N = 16 x 18 GBlock rows): the GRU's split-K plan depends on M = B H W. bf16 takes the
+    # same shapes, all operands bf16 but the GBlock's f32 affines.
     steps = 18
-    for batch, reps, bucket in ((2, 20, None), (TILE_BATCH, 5, f"tile_batch_{TILE_BATCH}")):
-        for t_in, hw, c in ((1, 8, 384), (steps, 16, 192), (steps, 32, 96), (steps, 64, 48)):
-            s = (9 * c) ** -0.5  # gates stay away from saturation
-            args = (
-                rand(t_in, batch, hw, hw, 3 * c),
-                rand(batch, hw, hw, c),
-                rand(3, 3, c, 2 * c, scale=s),
-                rand(3, 3, c, c, scale=s),
-                rand(3 * c, scale=0.1),
-                steps,
-            )
-            compare("convgru_rollout", convgru_rollout, convgru_rollout_reference, args,
-                    f"T={steps} gx={tuple(args[0].shape)}", reps=reps,
-                    work=gru_work(t_in, batch, hw, c, steps), bucket=bucket)
+    for kind, dtype, elem in (("f32", torch.float32, 4), ("bf16", torch.bfloat16, 2)):
+        suffix = "" if kind == "f32" else "_bf16"
+        for batch, reps, bucket in ((2, 20, None), (TILE_BATCH, 5, f"tile_batch_{TILE_BATCH}")):
+            for t_in, hw, c in ((1, 8, 384), (steps, 16, 192), (steps, 32, 96), (steps, 64, 48)):
+                s = (9 * c) ** -0.5  # gates stay away from saturation
+                args = (
+                    rand(t_in, batch, hw, hw, 3 * c, dtype=dtype),
+                    rand(batch, hw, hw, c, dtype=dtype),
+                    rand(3, 3, c, 2 * c, scale=s, dtype=dtype),
+                    rand(3, 3, c, c, scale=s, dtype=dtype),
+                    rand(3 * c, scale=0.1, dtype=dtype),
+                    steps,
+                )
+                compare(f"convgru_rollout{suffix}", convgru_rollout, convgru_rollout_reference,
+                        args, f"T={steps} gx={tuple(args[0].shape)}", reps=reps,
+                        work=gru_work(t_in, batch, hw, c, steps, elem), kind=kind, bucket=bucket)
 
-        n = steps * batch
-        for hw, cin, cout in ((8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96),
-                              (16, 384, 192)):
-            args = (
-                rand(n, hw, hw, cin),
-                rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5),
-                rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
-                rand(1, 1, cin, cout, scale=cin ** -0.5),
-                1.0 + rand(cin, scale=0.1),
-                rand(cin, scale=0.1),
-                1.0 + rand(cin, scale=0.1),
-                rand(cin, scale=0.1),
-                rand(cout, scale=0.1),
-                cin != cout,
-            )
-            compare("gblock_fused", gblock_fused, gblock_fused_reference, args,
-                    f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
-                    work=gblock_work(n, hw, cin, cout), bucket=bucket)
-            del args
+            n = steps * batch
+            for hw, cin, cout in ((8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96),
+                                  (16, 384, 192)):
+                args = (
+                    rand(n, hw, hw, cin, dtype=dtype),
+                    rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5, dtype=dtype),
+                    rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=dtype),
+                    rand(1, 1, cin, cout, scale=cin ** -0.5, dtype=dtype),
+                    1.0 + rand(cin, scale=0.1),
+                    rand(cin, scale=0.1),
+                    1.0 + rand(cin, scale=0.1),
+                    rand(cin, scale=0.1),
+                    rand(cout, scale=0.1),
+                    cin != cout,
+                )
+                compare(f"gblock_fused{suffix}", gblock_fused, gblock_fused_reference, args,
+                        f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
+                        work=gblock_work(n, hw, cin, cout, elem), kind=kind, bucket=bucket)
+                del args
     torch.cuda.empty_cache()
 
     # 4. The slice at full width through make_generate, from a CPU batch.
@@ -786,8 +1025,12 @@ def main() -> None:
     generate = make_generate(model)
     x = torch.rand((batch, 4, 1, size, size), generator=torch.Generator().manual_seed(3))
 
-    convgru_rollout.launches = 0
-    gblock_fused.launches = 0
+    counters = (Counter(convgru_rollout, "launches", "convgru_rollout"),
+                Counter(gblock_fused, "launches", "gblock_fused"),
+                Counter(convgru_rollout, "launches_bf16", "convgru_rollout_bf16"),
+                Counter(gblock_fused, "launches_bf16", "gblock_fused_bf16"))
+    for counter in counters:
+        counter.launches = 0
     seconds = []
     for i in range(REQUESTS):
         t0 = time.perf_counter()
@@ -800,9 +1043,9 @@ def main() -> None:
             fail(f"request {i}: output on {out.device}, not on the card")
         if not bool(torch.isfinite(out).all()):
             fail(f"request {i}: non-finite output")
-    launches = {"convgru_rollout": convgru_rollout.launches, "gblock_fused": gblock_fused.launches}
+    launches = launch_counts(counters)
     forwards = REQUESTS * s_n
-    expected = {"convgru_rollout": forwards * 4, "gblock_fused": forwards * 4 * 2}
+    expected = expected_launches(forwards)
     print(f"launches: {launches}, expected {expected}")
     if launches != expected:
         fail(f"the main path's kernel launches {launches} differ from {expected}")
@@ -833,7 +1076,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 7. Training at full width; 8. training parity, card vs CPU.
-    counters = (convgru_rollout, gblock_fused)
     by_path = train_full_width(torch, dev, card, counters)
     train_parity(torch, dev)
 
@@ -843,23 +1085,38 @@ def main() -> None:
     by_path.update(tiled_field(torch, dev, model, card, counters))
     by_path.update(mrms_field(torch, model, card, counters))
     by_path.update(skill_eval(torch, model, card, counters))
-    del model
     torch.cuda.empty_cache()
     serving_parity_tiny(torch, dev)
 
-    sources = {
-        "convgru_rollout": ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
-                            "skillful_nowcasting_tpu/ops/pallas_gru.py:40"),
-        "gblock_fused": ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",
-                         "skillful_nowcasting_tpu/ops/pallas_gblock.py:66"),
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name],
-         "launches_by_path": {"serve": launches[name],
-                              **{path: counts[name] for path, counts in by_path.items()}}}
-        for name, (src, rep) in sources.items()
-    ]
+    # 14. The serving artifact at full width; 15. the bf16 serving config at full width.
+    by_path.update(artifact_full_width(torch, dev, model, card, counters))
+    bf16_launches, more = bf16_full_width(torch, dev, model, card, counters)
+    by_path.update(more)
+    del model
+    torch.cuda.empty_cache()
+
+    gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
+           "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
+    gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",
+              "skillful_nowcasting_tpu/ops/pallas_gblock.py:66")
+    # Each variant's main path: the f32 requests of phase 4, the bf16 requests of phase 15.
+    main_path = {"convgru_rollout": (gru, launches), "gblock_fused": (gblock, launches),
+                 "convgru_rollout_bf16": (gru, bf16_launches),
+                 "gblock_fused_bf16": (gblock, bf16_launches)}
+    by_path = {"serve": launches, **by_path, "serve_bf16": bf16_launches}
+    kernels = []
+    for name, ((src, rep), counts) in main_path.items():
+        r = dict(results[name])
+        r["bound_by"] = "operations" if r.pop("ops_ms") >= r.pop("bytes_ms") else "bytes"
+        for bucket in r.values():
+            if isinstance(bucket, dict):
+                bucket["bound_by"] = ("operations" if bucket.pop("ops_ms") >= bucket.pop("bytes_ms")
+                                      else "bytes")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[name], **r,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -17,16 +17,35 @@ and train-mode BatchNorm / spectral norm). Both TPU kernels of the eval path
 have hand-written CUDA counterparts for Hopper in ``csrc/``, built on first
 use; CPU tensors take their plain PyTorch versions, CUDA tensors the kernels.
 Train mode runs plain PyTorch, as the JAX package trains without its kernels.
+The serving artifact (``serving.export_nowcast`` / ``save_exported`` /
+``load_exported``) is a ``torch.export`` program in which both kernels are
+custom ops. Compute follows the input's dtype: bfloat16 inputs run the
+kernels' bf16 variants.
 """
 
-from .dgmr import DGMR
-from .models.common import ContextConditioningStack, LatentConditioningStack
-from .models.generators import Generator, Sampler
+import importlib
 
-__all__ = [
-    "DGMR",
-    "ContextConditioningStack",
-    "Generator",
-    "LatentConditioningStack",
-    "Sampler",
-]
+# Module attribute -> the submodule that defines it. Imported on first use, so
+# importing a submodule (say ``serving``, which serves an artifact without
+# model code) loads no module of ``models``.
+_LAZY = {
+    "DGMR": ".dgmr",
+    "ContextConditioningStack": ".models.common",
+    "LatentConditioningStack": ".models.common",
+    "Generator": ".models.generators",
+    "Sampler": ".models.generators",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_LAZY[name], __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

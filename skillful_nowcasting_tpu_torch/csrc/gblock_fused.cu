@@ -31,6 +31,16 @@
 // mid stays in device memory: its round trip is 14-113 MB (4-34 us at
 // 3.35 TB/s), small beside the 0.30 ms bound, and one image of mid at
 // 8x8x768 with its halo is 307 KB, more than a block's 227 KB of shared memory.
+//
+// bf16 variant (gblock_conv1_bf16 / gblock_conv2_bf16), what the TPU kernel
+// computes given bf16 operands: bf16 x, k1, k2, ksc and out; the affines
+// (a1, b1, a2, b2, b_out) stay f32, as pallas_gblock.py builds its (5, C)
+// affine. relu(a1 * x + b1) is computed in f32 and rounded to bf16 as it
+// enters conv1; mid stays f32 (the TPU kernel's f32 `mid`) and is rounded to
+// bf16 as it enters conv2; the shortcut reads bf16 x; sums are f32 and out is
+// rounded once. Both launches run on the bf16 tensor cores (igemm.cuh's bf16
+// path), with the f32 kernels' tile shapes; at N = 288 the two convs are
+// 391 GFLOP, 0.40 ms at 989 TFLOP/s, against 0.07-0.27 ms for their bytes.
 
 #include "igemm.cuh"
 
@@ -140,6 +150,114 @@ cudaError_t launch(bool second, const GBlockArgs& p, cudaStream_t stream) {
   return vec ? launch_vec<4>(second, p, nout, stream) : launch_vec<1>(second, p, nout, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 variant.
+
+struct GBlockBfArgs {
+  const uint16_t* x;  // (N, H, W, Cin) bf16
+  const float* mid_in;
+  const uint16_t* k1;
+  const uint16_t* k2;
+  const uint16_t* ksc;
+  const float* a1;
+  const float* b1;
+  const float* a2;
+  const float* b2;
+  const float* b_out;
+  float* mid;     // (N, H, W, Cin) f32
+  uint16_t* out;  // (N, H, W, Cout) bf16
+  int use_sc_conv;
+  int N, H, W, Cin, Cout;
+};
+
+template <class Cfg, bool VEC>
+__global__ void __launch_bounds__(Cfg::THREADS, 2) gblock_conv1_bf16_kernel(GBlockBfArgs p) {
+  extern __shared__ __align__(16) char smem_bf[];
+  const int M = p.N * p.H * p.W;
+  const int C = p.Cin;
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int n0 = blockIdx.y * Cfg::BN;
+  float* scale = reinterpret_cast<float*>(smem_bf + Cfg::SMEM_BYTES);  // a1, b1 behind the ring
+  float* shift = scale + C;
+  for (int c = threadIdx.x; c < C; c += Cfg::THREADS) {
+    scale[c] = p.a1[c];
+    shift[c] = p.b1[c];
+  }
+  __syncthreads();
+  float acc[Cfg::MT][Cfg::NT][4] = {};
+  const ConvBf<uint16_t> op{p.x, p.k1, scale, shift, p.H, p.W, C, C};
+  conv_tile_bf<Cfg, uint16_t, 3, VEC, true>(acc, smem_bf, op, M, m0, n0, 0, cdiv(9 * C, Cfg::BK));
+  float a2[Cfg::NT * 4], b2[Cfg::NT * 4];
+  epilogue<Cfg>(
+      acc, m0, n0,
+      [&](int j, int m, int n) {
+        a2[j] = n < C ? p.a2[n] : 0.f;
+        b2[j] = n < C ? p.b2[n] : 0.f;
+      },
+      [&](int j, int m, int n, float v) {
+        if (m < M && n < C) p.mid[(size_t)m * C + n] = fmaxf(fmaf(a2[j], v, b2[j]), 0.f);
+      });
+}
+
+template <class Cfg, bool VEC>
+__global__ void __launch_bounds__(Cfg::THREADS, 2) gblock_conv2_bf16_kernel(GBlockBfArgs p) {
+  extern __shared__ __align__(16) char smem_bf[];
+  const int M = p.N * p.H * p.W;
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int n0 = blockIdx.y * Cfg::BN;
+  float acc[Cfg::MT][Cfg::NT][4] = {};
+  const ConvBf<float> op{p.mid_in, p.k2, nullptr, nullptr, p.H, p.W, p.Cin, p.Cout};
+  conv_tile_bf<Cfg, float, 3, VEC, false>(acc, smem_bf, op, M, m0, n0, 0, cdiv(9 * p.Cin, Cfg::BK));
+  if (p.use_sc_conv) {  // uniform across the grid, so the barriers inside stay uniform
+    const ConvBf<uint16_t> sc{p.x, p.ksc, nullptr, nullptr, p.H, p.W, p.Cin, p.Cout};
+    conv_tile_bf<Cfg, uint16_t, 1, VEC, false>(acc, smem_bf, sc, M, m0, n0, 0,
+                                               cdiv(p.Cin, Cfg::BK));
+  }
+  float add[Cfg::NT * 4];
+  epilogue<Cfg>(
+      acc, m0, n0,
+      [&](int j, int m, int n) {
+        const bool ok = m < M && n < p.Cout;
+        add[j] = ok ? p.b_out[n] : 0.f;
+        if (ok && !p.use_sc_conv) add[j] += bf16_to_f32(p.x[(size_t)m * p.Cout + n]);  // identity
+      },
+      [&](int j, int m, int n, float v) {
+        if (m < M && n < p.Cout) p.out[(size_t)m * p.Cout + n] = f32_to_bf16(v + add[j]);
+      });
+}
+
+using MidBf = BfCfg<128, 96, 2, 4>;
+using NarrowBf = BfCfg<128, 64, 4, 2>;
+
+template <class Cfg, bool VEC>
+cudaError_t launch_conv_bf(bool second, const GBlockBfArgs& p, int nout, cudaStream_t stream) {
+  auto kernel = second ? gblock_conv2_bf16_kernel<Cfg, VEC> : gblock_conv1_bf16_kernel<Cfg, VEC>;
+  const int smem = Cfg::SMEM_BYTES + (second ? 0 : 2 * p.Cin * (int)sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(p.N * p.H * p.W, Cfg::BM), cdiv(nout, Cfg::BN));
+  kernel<<<grid, Cfg::THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_vec_bf(bool second, const GBlockBfArgs& p, int nout, cudaStream_t stream) {
+  if (nout % NarrowBf::BN != 0 && nout % MidBf::BN == 0)
+    return launch_conv_bf<MidBf, VEC>(second, p, nout, stream);
+  return launch_conv_bf<NarrowBf, VEC>(second, p, nout, stream);
+}
+
+cudaError_t launch_bf(bool second, const GBlockBfArgs& p, cudaStream_t stream) {
+  const int nout = second ? p.Cout : p.Cin;
+  // 16-byte copies: 8 bf16 (x, kernels) or 4 f32 (mid) per copy.
+  const bool vec = p.Cin % 8 == 0 && nout % 8 == 0 && aligned16(p.x) && aligned16(p.mid_in) &&
+                   aligned16(p.k1) && aligned16(p.k2) && aligned16(p.ksc);
+  return vec ? launch_vec_bf<true>(second, p, nout, stream)
+             : launch_vec_bf<false>(second, p, nout, stream);
+}
+
 }  // namespace dgmr
 
 extern "C" {
@@ -180,6 +298,44 @@ int gblock_conv2_f32(const float* mid, const float* x, const float* k2, const fl
   p.Cin = Cin;
   p.Cout = Cout;
   return static_cast<int>(dgmr::launch(true, p, static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 variant: x, k1, mid as for gblock_conv1_f32 but x and k1 bf16; affines f32.
+int gblock_conv1_bf16(const uint16_t* x, const uint16_t* k1, const float* a1, const float* b1,
+                      const float* a2, const float* b2, float* mid, int N, int H, int W, int C,
+                      void* stream) {
+  dgmr::GBlockBfArgs p{};
+  p.x = x;
+  p.k1 = k1;
+  p.a1 = a1;
+  p.b1 = b1;
+  p.a2 = a2;
+  p.b2 = b2;
+  p.mid = mid;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.Cin = p.Cout = C;
+  return static_cast<int>(dgmr::launch_bf(false, p, static_cast<cudaStream_t>(stream)));
+}
+
+int gblock_conv2_bf16(const float* mid, const uint16_t* x, const uint16_t* k2, const uint16_t* ksc,
+                      const float* b_out, uint16_t* out, int use_sc_conv, int N, int H, int W,
+                      int Cin, int Cout, void* stream) {
+  dgmr::GBlockBfArgs p{};
+  p.x = x;
+  p.mid_in = mid;
+  p.k2 = k2;
+  p.ksc = ksc;
+  p.b_out = b_out;
+  p.out = out;
+  p.use_sc_conv = use_sc_conv;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  return static_cast<int>(dgmr::launch_bf(true, p, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

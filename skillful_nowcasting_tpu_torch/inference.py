@@ -18,10 +18,12 @@ latent (quirk Q2 extended to the domain), and interior seams crop
 
 Layouts are the port's: sequences ``(B, T, C, H, W)``, fields
 ``(T, C, H, W)``, latents ``(1, 8C, H/32, W/32)``. Everything runs where the
-model lives (the card by default) and needs an eval-mode model; the tilers
-and the skill metrics run in float32 only, as the kernels do (bf16 is a
-ROADMAP item), and raise on another ``dtype``. Multi-card ``mesh`` tiling
-waits for the port's ``parallel/``.
+model lives (the card by default) and needs an eval-mode model. Compute
+follows the input's dtype, as in JAX: a bfloat16 batch runs the f32 model in
+bf16 (every layer casts its f32 weights at use; the kernels' bf16
+variants), and the tilers' ``dtype=torch.bfloat16`` runs the tile forwards
+in bf16 and stitches an f32 field. The skill metrics run in float32.
+Multi-card ``mesh`` tiling waits for the port's ``parallel/``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ def make_generate(
     unchunked one and only the peak memory changes. ``None`` runs the whole
     batch at once. The model must be in eval mode. ``x`` is moved to the
     model's device, so a CPU batch runs on the card of a model built with
-    the default device.
+    the default device. Compute and the result follow ``x.dtype`` (float32,
+    or bfloat16 through the kernels' bf16 variants), as in JAX; the latents
+    are drawn in float32 and cast to it.
     """
     n = num_samples if num_samples is not None else model.num_samples
     if microbatch is None:
@@ -81,11 +85,10 @@ def make_generate(
 
 
 def _eval_model(model, dtype=None) -> torch.device:
-    """The device of an eval-mode model; raises on train mode and on a non-f32 ``dtype``."""
-    if dtype is not None and dtype != torch.float32:
+    """The device of an eval-mode model; raises on train mode and on a ``dtype`` the kernels lack."""
+    if dtype is not None and dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"dtype={dtype}: the port's kernels are float32 only; bf16 eval kernels are a "
-            "ROADMAP item (Queue 1, 'bf16 eval kernels')"
+            f"dtype={dtype}: the port's kernels take float32 or bfloat16"
         )
     if model.training:
         raise ValueError("the model is in train mode; call model.eval() to serve nowcasts")
@@ -108,7 +111,8 @@ def make_skill_metrics(
     CSI of the ensemble mean at each threshold (``csi_{t}``) and the
     ensemble-mean MSE (``mse``). ``return_counts=True`` adds the contingency
     counts ``csi_counts`` ``(n_thresholds, 3)``, which a dataset-level CSI
-    pools (:func:`evaluate_nowcast`). Batches are ``(B, T, C, H, W)``.
+    pools (:func:`evaluate_nowcast`). Batches are ``(B, T, C, H, W)``, run in
+    float32.
     """
     _eval_model(model)
     generate = make_generate(model, num_samples=num_samples)
@@ -117,7 +121,7 @@ def make_skill_metrics(
 
     @torch.inference_mode()
     def batch_metrics(images, future, generator: Optional[torch.Generator] = None):
-        samples = generate(torch.as_tensor(images), generator)
+        samples = generate(torch.as_tensor(images).float(), generator)
         future = torch.as_tensor(future).to(samples.device)
         mean = samples.float().mean(dim=0)
         out = {
@@ -154,7 +158,8 @@ def evaluate_nowcast(
     ratios would be biased). Sums stay on the device and only the final
     scalars leave it. ``generator`` (default: seeded 0) draws every latent,
     batch after batch. Returns floats: ``crps``, ``crps_pool{p}``,
-    ``csi_{t}``, ``mse`` and the count ``batches``.
+    ``csi_{t}``, ``mse`` and the count ``batches``. The forwards run in
+    float32 (the skill loop has no ``dtype``; a bf16 batch is converted).
     """
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -270,14 +275,14 @@ def _tiling(model, tile: int, overlap: int, batch_tiles: int, dtype) -> torch.de
     return _eval_model(model, dtype)
 
 
-def _shared_latent(model, c: int, tile: int, z, generator, device) -> torch.Tensor:
-    """The latent ``(1, 8C, tile/32, tile/32)`` that every tile shares."""
+def _shared_latent(model, c: int, tile: int, z, generator, device, dtype) -> torch.Tensor:
+    """The latent ``(1, 8C, tile/32, tile/32)`` that every tile shares, in the tiles' ``dtype``."""
     if z is None:
         lat = tile // 32
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        like = torch.empty((), device=device)
+        like = torch.empty((), device=device, dtype=dtype)
         return draw_latents((8 * c, lat, lat), 1, gen, like)
-    return torch.as_tensor(z).to(device=device, dtype=torch.float32)
+    return torch.as_tensor(z).to(device=device, dtype=torch.float32).to(dtype)
 
 
 @torch.inference_mode()
@@ -306,16 +311,19 @@ def tiled_nowcast(
         generator: draws the shared latent (default: seeded 0); ignored if
             ``z`` is given.
         z: a fixed latent ``(1, 8C, tile/32, tile/32)`` shared by all tiles.
-        dtype: ``None`` or ``torch.float32``.
+        dtype: the tile forwards' compute dtype: ``None`` / ``torch.float32``,
+            or ``torch.bfloat16`` (the serving config: tiles and latent in
+            bf16, the kernels' bf16 variants, the stitched field f32).
 
     Returns:
         The stitched nowcast ``(T_out, C, H, W)``, float32 numpy in host memory.
     """
     device = _tiling(model, tile, overlap, batch_tiles, dtype)
+    dtype = dtype or torch.float32
     frames = np.asarray(frames, np.float32)
     t_in, c, h, w = frames.shape
     stride, margin = tile - overlap, overlap // 2
-    z = _shared_latent(model, c, tile, z, generator, device)
+    z = _shared_latent(model, c, tile, z, generator, device, dtype)
 
     ph, pw = max(tile - h, 0), max(tile - w, 0)
     if ph or pw:  # every tile full-size
@@ -327,7 +335,7 @@ def tiled_nowcast(
     for start in range(0, len(positions), batch_tiles):
         chunk = positions[start : start + batch_tiles]
         batch = np.stack([frames[:, :, i : i + tile, j : j + tile] for i, j in chunk])
-        preds = model(torch.from_numpy(batch).to(device), z=z).float().cpu().numpy()
+        preds = model(torch.from_numpy(batch).to(device, dtype), z=z).float().cpu().numpy()
         for (i, j), pred in zip(chunk, preds):
             top = 0 if i == 0 else margin
             left = 0 if j == 0 else margin
@@ -370,15 +378,18 @@ def tiled_nowcast_device(
     copy to the host is enqueued on a side stream into pinned memory, so it
     runs while the next stripe computes. The tile batches are the same
     whatever the stripe count, so the result is bit-identical to one stripe.
-    Other arguments and the result as for :func:`tiled_nowcast`.
+    With ``dtype=torch.bfloat16`` the field lives on the device in bf16 and
+    the tile forwards run in bf16; the stitched output buffer is f32. Other
+    arguments and the result as for :func:`tiled_nowcast`.
     """
     device = _tiling(model, tile, overlap, batch_tiles, dtype)
+    dtype = dtype or torch.float32
     if fetch_stripes < 1:
         raise ValueError(f"fetch_stripes must be at least 1, got {fetch_stripes}")
-    field = torch.as_tensor(np.asarray(frames, np.float32)).to(device)
+    field = torch.as_tensor(np.asarray(frames, np.float32)).to(device, dtype)
     t_in, c, h, w = field.shape
     margin, stride = overlap // 2, tile - overlap
-    z = _shared_latent(model, c, tile, z, generator, device)
+    z = _shared_latent(model, c, tile, z, generator, device, dtype)
 
     def padded(n):  # tiles at `stride` cover the padded extent exactly
         n2 = n + 2 * margin

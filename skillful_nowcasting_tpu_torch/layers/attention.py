@@ -1,7 +1,8 @@
 """Spatial self-attention layer (port of ``skillful_nowcasting_tpu/layers/attention.py``).
 
 1x1 Q/K/V convs without bias or spectral norm, a learnable scalar ``gamma``
-(initialised to zero, as in the reference) and a residual connection.
+(initialised to zero, as in the reference) and a residual connection. Compute
+follows the input's dtype (``gamma`` is cast to it, as in JAX).
 """
 
 from __future__ import annotations
@@ -36,4 +37,4 @@ class AttentionLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attend = attention_torch_compat if self.mode == "torch_compat" else attention_fixed
         out = attend(self.query(x), self.key(x), self.value(x))
-        return self.gamma * self.last_conv(out) + x
+        return self.gamma.to(x.dtype) * self.last_conv(out) + x

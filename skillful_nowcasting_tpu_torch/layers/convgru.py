@@ -88,10 +88,14 @@ class ConvGRU(nn.Module):
             return self._train_forward(x_seq, hidden_state, n_steps, x_static)
         cell = self.cell
         xc = self.input_channels - self.output_channels
-        # Spectral norm is applied by .weight (eval: constant across steps).
+        # Spectral norm is applied by .weight (eval: constant across steps),
+        # in the parameters' dtype; compute follows x's (as in JAX): the
+        # kernels, biases and h0 are cast to it, so bf16 runs the bf16 kernel.
+        dtype = x_seq.dtype
         convs = (cell.read_gate_conv, cell.update_gate_conv, cell.output_conv)
-        kr, ku, kc = (conv.weight for conv in convs)
-        bias = torch.cat([conv.bias for conv in convs])
+        kr, ku, kc = (conv.weight.to(dtype) for conv in convs)
+        bias = torch.cat([conv.bias for conv in convs]).to(dtype)
+        hidden_state = hidden_state.to(dtype)
 
         # Input parts of all three gates as one conv, batched over every step.
         gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)

@@ -40,7 +40,9 @@ class GBlock(nn.Module):
 
     Eval runs folded (BN into affines, SN into kernels) through
     :func:`~skillful_nowcasting_tpu_torch.ops.gblock_fused`: the hand-written
-    kernel for CUDA tensors, the plain version for CPU tensors. Train mode
+    kernel for CUDA tensors, the plain version for CPU tensors. The fold is
+    computed in the parameters' dtype; the kernels are cast to ``x``'s dtype
+    and the affines are not, so a bf16 ``x`` runs the bf16 kernel. Train mode
     has no fold (BN uses batch statistics) and runs the plain layers.
     """
 
@@ -66,7 +68,8 @@ class GBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
         if not self.training:
-            y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *fold_gblock_variables(self))
+            y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(),
+                             *fold_gblock_variables(self, x.dtype))
             return y.permute(0, 3, 1, 2)
         sc = self.conv_1x1(x, steps) if x.shape[1] != self.last_conv_3x3.out_channels else x
         h = self.first_conv_3x3(torch.relu(self.bn1(x, steps)), steps)

@@ -16,6 +16,11 @@ conv (or matmul) with the raw weight runs over all slices and slice ``t``
 is divided by ``sigma_t`` before the bias is added
 (``skillful_nowcasting_tpu/ops/conv.py:121-171,205-237``). In eval mode and
 without spectral norm, ``steps`` changes nothing.
+
+Outside a spectrally normalized train forward, compute follows the input's
+dtype, as in JAX (``dtype = self.dtype or x.dtype``): the weight (spectral
+norm applied in the parameter's dtype) and the bias are cast to ``x.dtype``
+at use, so one f32 model serves f32 and bf16 inputs.
 """
 
 from __future__ import annotations
@@ -33,13 +38,14 @@ from .spectral_norm import spectral_norm as _spectral_norm
 class _TrainSpectral:
     """``forward(x, steps=None)`` shared by the three layers below."""
 
-    def _linear(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        """The layer without its bias, on an explicit weight (convs; :class:`Linear` overrides)."""
-        return self._conv_forward(x, weight, None)
+    def _linear(self, x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+        """The layer on an explicit weight and bias (convs; :class:`Linear` overrides)."""
+        return self._conv_forward(x, weight, bias)
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
         if not (self.training and parametrize.is_parametrized(self, "weight")):
-            return super().forward(x)
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return self._linear(x, self.weight.to(x.dtype), bias)
         raw = self.parametrizations.weight.original
         sigmas = self.parametrizations.weight[0].advance(raw, steps or 1)
         y = self._linear(x, raw)
@@ -60,8 +66,8 @@ class Conv3d(_TrainSpectral, nn.Conv3d):
 class Linear(_TrainSpectral, nn.Linear):
     """``nn.Linear`` (weight ``(out, in)``) whose train forward applies per-slice spectral norm."""
 
-    def _linear(self, x, weight):
-        return F.linear(x, weight)
+    def _linear(self, x, weight, bias=None):
+        return F.linear(x, weight, bias)
 
 
 def conv2d(

@@ -1,4 +1,4 @@
-"""Eval GBlock: hand-written CUDA kernel, its plain PyTorch version, and the fold.
+"""Eval GBlock: hand-written CUDA kernels, their plain PyTorch version, and the fold.
 
 Port of ``skillful_nowcasting_tpu/ops/pallas_gblock.py:gblock_fused`` (Pallas
 kernel ``_gblock_kernel``) and ``fold_gblock_variables``. In eval mode a
@@ -7,9 +7,16 @@ GBlock is
     out = conv3(relu(a2 * conv3(relu(a1 * x + b1), k1) + b2), k2) + (conv1x1(x, ksc) | x) + b_out
 
 with BN folded into the affines and spectral norm into the kernels. The public
-function keeps the JAX layouts (NHWC activations, HWIO kernels). On a CUDA
-tensor it launches the two tensor-core kernels of ``csrc/gblock_fused.cu``;
-on a CPU tensor the plain version runs.
+function keeps the JAX layouts (NHWC activations, HWIO kernels) and is the
+``torch.library`` custom op ``dgmr::gblock_fused``, so ``torch.export``
+records it as one node. On a CUDA tensor it launches the two tensor-core
+kernels of ``csrc/gblock_fused.cu`` for its dtype (float32 or bfloat16); on
+a CPU tensor the plain version runs.
+
+bf16 follows the TPU kernel given bf16 operands: ``x`` and the kernels are
+bf16, the affines f32; ``relu(a1 * x + b1)`` and ``mid`` are computed in f32
+and rounded to bf16 as they enter a conv; sums are f32 and the output is
+rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -22,16 +29,19 @@ import torch.nn.functional as F
 from .. import _build
 
 
-def fold_gblock_variables(block):
+def fold_gblock_variables(block, dtype=None):
     """Fold an eval :class:`~skillful_nowcasting_tpu_torch.models.GBlock` into kernel arguments.
 
     Returns ``(k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)``: HWIO kernels
     with spectral norm applied, BN folded to ``a * x + b``, conv1's bias folded
     into ``b2`` and conv2's (plus the shortcut conv's, when used) into ``b_out``.
+    Everything is computed in the parameters' dtype; the kernels are then cast
+    to ``dtype`` (the activation's, e.g. bfloat16), the affines are not.
     """
 
-    def hwio(conv):
-        return conv.weight.permute(2, 3, 1, 0).contiguous(), conv.bias  # SN applied by .weight
+    def hwio(conv):  # SN applied by .weight
+        k = conv.weight.permute(2, 3, 1, 0)
+        return (k if dtype is None else k.to(dtype)).contiguous(), conv.bias
 
     def bn_affine(bn):
         a = bn.weight / torch.sqrt(bn.running_var + bn.eps)
@@ -49,36 +59,49 @@ def fold_gblock_variables(block):
 
 
 def gblock_fused_reference(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
-    """Plain PyTorch eval GBlock; same arguments and result as :func:`gblock_fused`."""
-    xn = x.permute(0, 3, 1, 2)
+    """Plain PyTorch eval GBlock; same arguments and result as :func:`gblock_fused`.
+
+    bf16 operands are computed as the bf16 kernels compute them, in f32
+    arithmetic: ``relu(a1 * x + b1)`` and ``mid`` are f32, rounded to bf16
+    on their way into each conv; the output is rounded to bf16 once.
+    """
+    work = a1.dtype
+    if x.dtype == torch.bfloat16:
+        enter = lambda v: v.bfloat16().to(work)  # noqa: E731
+    else:
+        enter = lambda v: v  # noqa: E731
+    xn = x.permute(0, 3, 1, 2).to(work)
     col = lambda v: v.view(-1, 1, 1)  # noqa: E731
+    oihw = lambda k: k.to(work).permute(3, 2, 0, 1)  # noqa: E731
     y = torch.relu(xn * col(a1) + col(b1))
-    y = F.conv2d(y, k1.permute(3, 2, 0, 1), padding=1)
+    y = F.conv2d(enter(y), oihw(k1), padding=1)
     y = torch.relu(y * col(a2) + col(b2))
-    y = F.conv2d(y, k2.permute(3, 2, 0, 1), padding=1)
-    sc = F.conv2d(xn, ksc.permute(3, 2, 0, 1)) if use_sc_conv else xn
-    return (y + sc + col(b_out)).permute(0, 2, 3, 1).contiguous()
+    y = F.conv2d(enter(y), oihw(k2), padding=1)
+    sc = F.conv2d(xn, oihw(ksc)) if use_sc_conv else xn
+    return (y + sc + col(b_out)).permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
-    """Eval GBlock on ``x`` of shape ``(N, H, W, Cin)``; returns ``(N, H, W, Cout)``.
+def _check(x, k1, k2, ksc, a1, b1, a2, b2, b_out) -> None:
+    """x and the kernels share one dtype; the affines are float32 (float64 for a float64 x)."""
+    affine = torch.promote_types(x.dtype, torch.float32)
+    want = {"k1": (k1, x.dtype), "k2": (k2, x.dtype), "ksc": (ksc, x.dtype), "a1": (a1, affine),
+            "b1": (b1, affine), "a2": (a2, affine), "b2": (b2, affine), "b_out": (b_out, affine)}
+    for name, (tensor, dtype) in want.items():
+        if tensor.dtype != dtype:
+            raise TypeError(
+                f"gblock_fused: {name} is {tensor.dtype}, expected {dtype} for x of {x.dtype} "
+                "(x and the kernels share one dtype; the affines are float32)"
+            )
 
-    ``k1`` is ``(3, 3, Cin, Cin)``, ``k2`` ``(3, 3, Cin, Cout)``, ``ksc`` the
-    ``(1, 1, Cin, Cout)`` shortcut kernel (read only when ``use_sc_conv``;
-    the shortcut is the identity otherwise, which needs ``Cin == Cout``),
-    ``a1, b1, a2, b2`` of shape ``(Cin,)`` and ``b_out`` of shape ``(Cout,)``.
-    CPU tensors take the plain version; CUDA tensors take the kernel or raise.
-    """
-    if x.device.type == "cpu":
-        return gblock_fused_reference(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"gblock_fused: tensors on {x.device}; expected CPU or one CUDA device"
-        )
+
+def _launch(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
+    """The two kernels for ``x.dtype`` on the card; raises on what they do not take."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gblock_fused: {x.dtype}; the kernels take float32 or bfloat16")
     n, h, w, cin = x.shape
     cout = k2.shape[-1]
     if not use_sc_conv and cin != cout:
@@ -97,12 +120,10 @@ def gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
         "b_out": (b_out, (cout,)),
     }
     for name, (tensor, shape) in expected.items():
-        if tensor.device != x.device or tensor.device.type != "cuda":
+        if tensor.device != x.device:
             raise ValueError(
                 f"gblock_fused: {name} is on {tensor.device}, expected one CUDA device"
             )
-        if tensor.dtype != torch.float32:
-            raise TypeError(f"gblock_fused: {name} is {tensor.dtype}; the kernel takes float32")
         if tuple(tensor.shape) != shape:
             raise ValueError(
                 f"gblock_fused: {name} has shape {tuple(tensor.shape)}, expected {shape}"
@@ -112,23 +133,74 @@ def gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
     if n * h * w * max(cin, cout) >= 2**31:
         raise ValueError("gblock_fused: x is too large for 32-bit indexing")
 
+    suffix = "f32" if x.dtype == torch.float32 else "bf16"
     mid = torch.empty((n, h, w, cin), device=x.device, dtype=torch.float32)
-    out = torch.empty((n, h, w, cout), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         _build.call(
-            "gblock_conv1_f32",
+            f"gblock_conv1_{suffix}",
             _ptr(x), _ptr(k1), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
             n, h, w, cin, stream,
         )
-        gblock_fused.launches += 1
+        _count(x.dtype)
         _build.call(
-            "gblock_conv2_f32",
+            f"gblock_conv2_{suffix}",
             _ptr(mid), _ptr(x), _ptr(k2), _ptr(ksc), _ptr(b_out), _ptr(out), int(use_sc_conv),
             n, h, w, cin, cout, stream,
         )
-        gblock_fused.launches += 1
+        _count(x.dtype)
     return out
 
 
-gblock_fused.launches = 0  # kernel launches since the last reset
+def _count(dtype) -> None:
+    if dtype == torch.float32:
+        gblock_fused.launches += 1
+    else:
+        gblock_fused.launches_bf16 += 1
+
+
+@torch.library.custom_op("dgmr::gblock_fused", mutates_args=())
+def _gblock_op(
+    x: torch.Tensor,
+    k1: torch.Tensor,
+    k2: torch.Tensor,
+    ksc: torch.Tensor,
+    a1: torch.Tensor,
+    b1: torch.Tensor,
+    a2: torch.Tensor,
+    b2: torch.Tensor,
+    b_out: torch.Tensor,
+    use_sc_conv: bool,
+) -> torch.Tensor:
+    _check(x, k1, k2, ksc, a1, b1, a2, b2, b_out)
+    if x.device.type == "cpu":
+        return gblock_fused_reference(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
+    return _launch(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
+
+
+@_gblock_op.register_fake
+def _(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, k2.shape[-1]))
+
+
+def gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv):
+    """Eval GBlock on ``x`` of shape ``(N, H, W, Cin)``; returns ``(N, H, W, Cout)``.
+
+    The custom op ``dgmr::gblock_fused``. ``k1`` is ``(3, 3, Cin, Cin)``,
+    ``k2`` ``(3, 3, Cin, Cout)``, ``ksc`` the ``(1, 1, Cin, Cout)`` shortcut
+    kernel (read only when ``use_sc_conv``; the shortcut is the identity
+    otherwise, which needs ``Cin == Cout``), all in ``x``'s dtype (float32 or
+    bfloat16 on the card); ``a1, b1, a2, b2`` of shape ``(Cin,)`` and
+    ``b_out`` of shape ``(Cout,)`` in float32. The result has ``x``'s dtype.
+    CPU tensors take the plain version; CUDA tensors take the kernels for
+    their dtype or raise.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gblock_fused: tensors on {x.device}; expected CPU or one CUDA device")
+    return torch.ops.dgmr.gblock_fused(x, k1, k2, ksc, a1, b1, a2, b2, b_out, bool(use_sc_conv))
+
+
+gblock_fused.launches = 0  # f32 kernel launches since the last reset (two per call)
+gblock_fused.launches_bf16 = 0  # bf16 kernel launches since the last reset (two per call)

@@ -1,4 +1,4 @@
-"""Eval ConvGRU rollout: hand-written CUDA kernel and its plain PyTorch version.
+"""Eval ConvGRU rollout: hand-written CUDA kernels and their plain PyTorch version.
 
 Port of ``skillful_nowcasting_tpu/ops/pallas_gru.py:convgru_rollout`` (Pallas
 kernel ``_gru_kernel``). The public function keeps the JAX signature and
@@ -10,10 +10,16 @@ Each step computes
     c  = relu(gx_c + conv3(r * h, k_c) + b_c)
     h' = u * h + (1 - u) * c
 
-and all ``T`` states are returned. On a CUDA tensor one persistent
-cooperative launch of ``csrc/gru_rollout.cu`` runs every step (see the note
-there for the design and what bounds it); on a CPU tensor the plain version
-runs.
+and all ``T`` states are returned. The rollout is the ``torch.library``
+custom op ``dgmr::convgru_rollout``, so ``torch.export`` records it as one
+node. On a CUDA tensor one persistent cooperative launch of
+``csrc/gru_rollout.cu`` runs every step: the f32 kernel for float32
+operands, the bf16 kernel for bfloat16 ones (see the notes there for the
+designs and what bounds them); on a CPU tensor the plain version runs.
+
+bf16 follows the TPU kernel given bf16 operands: ``h`` and ``r * h`` stay f32
+for the whole rollout and are rounded to bf16 as they enter a conv, sums are
+f32, and each output state is rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -45,29 +51,127 @@ def convgru_rollout_reference(
 ) -> torch.Tensor:
     """Plain PyTorch rollout: an ``F.conv2d`` loop over the steps.
 
-    Same arguments and result as :func:`convgru_rollout`.
+    Same arguments and result as :func:`convgru_rollout`. bf16 operands are
+    computed as the bf16 kernel computes them, in f32 arithmetic: ``h`` and
+    ``r * h`` are f32, rounded to bf16 on their way into each conv
+    (``conv(h.bfloat16().float(), k.float())``), and each state is returned
+    in bf16.
     """
     t, static = _static(gx_seq, n_steps)
     c = h0.shape[-1]
-    w_ru = k_ru.permute(3, 2, 0, 1)  # HWIO -> OIHW
-    w_c = k_c.permute(3, 2, 0, 1)
-    b = bias.view(-1, 1, 1)
-    gx = gx_seq.permute(0, 1, 4, 2, 3)  # (T, B, 3C, H, W)
-    h = h0.permute(0, 3, 1, 2)
+    work = torch.promote_types(gx_seq.dtype, torch.float32)
+    if gx_seq.dtype == torch.bfloat16:
+        enter = lambda v: v.bfloat16().to(work)  # noqa: E731
+    else:
+        enter = lambda v: v  # noqa: E731
+    w_ru = k_ru.to(work).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    w_c = k_c.to(work).permute(3, 2, 0, 1)
+    b = bias.to(work).view(-1, 1, 1)
+    gx = gx_seq.to(work).permute(0, 1, 4, 2, 3)  # (T, B, 3C, H, W)
+    h = h0.to(work).permute(0, 3, 1, 2)
     outs = []
     for step in range(t):
         g = gx[0 if static else step]
-        gh = F.conv2d(h, w_ru, padding=1)
+        gh = F.conv2d(enter(h), w_ru, padding=1)
         read = torch.sigmoid(g[:, :c] + gh[:, :c] + b[:c])
         update = torch.sigmoid(g[:, c : 2 * c] + gh[:, c:] + b[c : 2 * c])
-        cand = torch.relu(g[:, 2 * c :] + F.conv2d(read * h, w_c, padding=1) + b[2 * c :])
+        cand = torch.relu(g[:, 2 * c :] + F.conv2d(enter(read * h), w_c, padding=1) + b[2 * c :])
         h = update * h + (1.0 - update) * cand
         outs.append(h)
-    return torch.stack(outs).permute(0, 1, 3, 4, 2).contiguous()
+    return torch.stack(outs).permute(0, 1, 3, 4, 2).contiguous().to(gx_seq.dtype)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(gx_seq, h0, k_ru, k_c, bias) -> None:
+    """Every operand shares ``gx_seq``'s dtype: a float32 / bfloat16 mix is an error, not a cast."""
+    for name, tensor in (("h0", h0), ("k_ru", k_ru), ("k_c", k_c), ("bias", bias)):
+        if tensor.dtype != gx_seq.dtype:
+            raise TypeError(
+                f"convgru_rollout: {name} is {tensor.dtype} but gx_seq is {gx_seq.dtype}; "
+                "every operand must have one dtype"
+            )
+
+
+def _launch(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
+    """The kernel for ``gx_seq.dtype`` on the card; raises on what it does not take."""
+    dtype = gx_seq.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"convgru_rollout: {dtype}; the kernels take float32 or bfloat16")
+    b, h, w, c = h0.shape
+    expected = {
+        "gx_seq": (gx_seq, (gx_seq.shape[0], b, h, w, 3 * c)),
+        "h0": (h0, (b, h, w, c)),
+        "k_ru": (k_ru, (3, 3, c, 2 * c)),
+        "k_c": (k_c, (3, 3, c, c)),
+        "bias": (bias, (3 * c,)),
+    }
+    for name, (tensor, shape) in expected.items():
+        if tensor.device != gx_seq.device:
+            raise ValueError(
+                f"convgru_rollout: {name} is on {tensor.device}, expected one CUDA device"
+            )
+        if tuple(tensor.shape) != shape:
+            raise ValueError(
+                f"convgru_rollout: {name} has shape {tuple(tensor.shape)}, expected {shape}"
+            )
+        if not tensor.is_contiguous():
+            raise ValueError(f"convgru_rollout: {name} must be contiguous")
+    if gx_seq.numel() >= 2**31:
+        raise ValueError("convgru_rollout: gx_seq is too large for 32-bit indexing")
+
+    out = torch.empty((t, b, h, w, c), device=gx_seq.device, dtype=dtype)
+    if t == 0:
+        return out
+    suffix = "f32" if dtype == torch.float32 else "bf16"
+    with torch.cuda.device(gx_seq.device):
+        floats = ctypes.c_longlong()
+        _build.call(f"gru_rollout_workspace_{suffix}", b, h, w, c, ctypes.byref(floats))
+        rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
+        u = torch.empty_like(rh)
+        part = torch.empty(floats.value, device=gx_seq.device, dtype=torch.float32)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if dtype == torch.float32:
+            _build.call(
+                "gru_rollout_f32",
+                _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
+                _ptr(rh), _ptr(u), _ptr(part),
+                b, h, w, c, t, gx_seq.shape[0], stream,
+            )
+            convgru_rollout.launches += 1
+        else:
+            hbuf = torch.empty_like(rh)  # h in f32 for the whole rollout
+            _build.call(
+                "gru_rollout_bf16",
+                _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
+                _ptr(hbuf), _ptr(rh), _ptr(u), _ptr(part),
+                b, h, w, c, t, gx_seq.shape[0], stream,
+            )
+            convgru_rollout.launches_bf16 += 1
+    return out
+
+
+@torch.library.custom_op("dgmr::convgru_rollout", mutates_args=())
+def _rollout_op(
+    gx_seq: torch.Tensor,
+    h0: torch.Tensor,
+    k_ru: torch.Tensor,
+    k_c: torch.Tensor,
+    bias: torch.Tensor,
+    n_steps: int,
+) -> torch.Tensor:
+    _check(gx_seq, h0, k_ru, k_c, bias)
+    if gx_seq.device.type == "cpu":
+        return convgru_rollout_reference(gx_seq, h0, k_ru, k_c, bias, n_steps)
+    return _launch(gx_seq, h0, k_ru, k_c, bias, n_steps)
+
+
+@_rollout_op.register_fake
+def _(gx_seq, h0, k_ru, k_c, bias, n_steps):
+    b, h, w, c = h0.shape
+    return gx_seq.new_empty((n_steps, b, h, w, c))
 
 
 def convgru_rollout(
@@ -78,7 +182,7 @@ def convgru_rollout(
     bias: torch.Tensor,
     n_steps: Optional[int] = None,
 ) -> torch.Tensor:
-    """Run the eval ConvGRU recurrence.
+    """Run the eval ConvGRU recurrence (the custom op ``dgmr::convgru_rollout``).
 
     Args:
         gx_seq: ``(T, B, H, W, 3C)`` input-part gate pre-activations (read,
@@ -92,58 +196,17 @@ def convgru_rollout(
         n_steps: number of steps (default ``gx_seq.shape[0]``).
 
     Returns:
-        ``(T, B, H, W, C)`` hidden states. CPU tensors take the plain version;
-        CUDA tensors take the kernel or raise.
+        ``(T, B, H, W, C)`` hidden states in the operands' dtype (one dtype
+        for all, float32 or bfloat16 on the card). CPU tensors take the
+        plain version; CUDA tensors take the kernel for their dtype or raise.
     """
-    if gx_seq.device.type == "cpu":
-        return convgru_rollout_reference(gx_seq, h0, k_ru, k_c, bias, n_steps)
-    if gx_seq.device.type != "cuda":
+    t, _ = _static(gx_seq, n_steps)
+    if gx_seq.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"convgru_rollout: tensors on {gx_seq.device}; expected CPU or one CUDA device"
         )
-    t, static = _static(gx_seq, n_steps)
-    b, h, w, c = h0.shape
-    expected = {
-        "gx_seq": (gx_seq, (gx_seq.shape[0], b, h, w, 3 * c)),
-        "h0": (h0, (b, h, w, c)),
-        "k_ru": (k_ru, (3, 3, c, 2 * c)),
-        "k_c": (k_c, (3, 3, c, c)),
-        "bias": (bias, (3 * c,)),
-    }
-    for name, (tensor, shape) in expected.items():
-        if tensor.device != gx_seq.device or tensor.device.type != "cuda":
-            raise ValueError(
-                f"convgru_rollout: {name} is on {tensor.device}, expected one CUDA device"
-            )
-        if tensor.dtype != torch.float32:
-            raise TypeError(f"convgru_rollout: {name} is {tensor.dtype}; the kernel takes float32")
-        if tuple(tensor.shape) != shape:
-            raise ValueError(
-                f"convgru_rollout: {name} has shape {tuple(tensor.shape)}, expected {shape}"
-            )
-        if not tensor.is_contiguous():
-            raise ValueError(f"convgru_rollout: {name} must be contiguous")
-    if gx_seq.numel() >= 2**31:
-        raise ValueError("convgru_rollout: gx_seq is too large for 32-bit indexing")
-
-    out = torch.empty((t, b, h, w, c), device=gx_seq.device, dtype=torch.float32)
-    if t == 0:
-        return out
-    with torch.cuda.device(gx_seq.device):
-        floats = ctypes.c_longlong()
-        _build.call("gru_rollout_workspace_f32", b, h, w, c, ctypes.byref(floats))
-        rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
-        u = torch.empty_like(rh)
-        part = torch.empty(floats.value, device=gx_seq.device, dtype=torch.float32)
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        _build.call(
-            "gru_rollout_f32",
-            _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
-            _ptr(rh), _ptr(u), _ptr(part),
-            b, h, w, c, t, gx_seq.shape[0], stream,
-        )
-        convgru_rollout.launches += 1
-    return out
+    return torch.ops.dgmr.convgru_rollout(gx_seq, h0, k_ru, k_c, bias, t)
 
 
-convgru_rollout.launches = 0  # kernel launches since the last reset
+convgru_rollout.launches = 0  # f32 kernel launches since the last reset
+convgru_rollout.launches_bf16 = 0  # bf16 kernel launches since the last reset

@@ -1,8 +1,11 @@
 """BatchNorm with torch semantics: port of ``skillful_nowcasting_tpu/ops/norm.py:TorchBatchNorm``.
 
-Eval is exactly ``nn.BatchNorm2d`` / ``nn.BatchNorm1d`` with running
-statistics (keys ``weight``, ``bias``, ``running_mean``, ``running_var``,
-``num_batches_tracked``). Train mode follows the JAX module
+Eval normalizes with the running statistics as ``nn.BatchNorm2d`` /
+``nn.BatchNorm1d`` do (keys ``weight``, ``bias``, ``running_mean``,
+``running_var``, ``num_batches_tracked``): the scale and shift are computed
+in the statistics' dtype and cast to the input's, so compute follows the
+input's dtype as in JAX (``ops/norm.py:60-67``) and one f32 model serves f32
+and bf16 inputs. Train mode follows the JAX module
 (``ops/norm.py:60-119``):
 
 * statistics at no less than f32, ``var = E[x^2] - mean^2``;
@@ -31,7 +34,10 @@ class _TorchBatchNorm:
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            scale = self.weight / torch.sqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            shape = (-1,) + (1,) * (x.ndim - 2)
+            return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
         s = steps or 1
         xs = x.unflatten(0, (s, -1)).to(torch.promote_types(x.dtype, torch.float32))
         red = (1,) + tuple(range(3, xs.ndim))  # all but the slice and channel axes

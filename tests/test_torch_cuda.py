@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
+Both kernels in f32 and in bf16 (tolerance: 2^-7 of the largest plain
+output, one bf16 ulp there), and a tiny serving artifact on the card.
+
 Every test here is marked ``cuda`` and skips where CUDA is absent. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
 without them (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
@@ -11,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from skillful_nowcasting_tpu_torch import DGMR, training
+from skillful_nowcasting_tpu_torch import DGMR, serving, training
 from skillful_nowcasting_tpu_torch.inference import (
     evaluate_nowcast,
     make_generate,
@@ -244,3 +247,74 @@ def test_evaluate_nowcast_on_card_matches_cpu(dev):
     got = evaluate_nowcast(model, batches, generator=torch.Generator().manual_seed(1), **kwargs)
     for name, value in want.items():
         assert abs(got[name] - value) <= 1e-3, name
+
+
+def bf16_rel_err(got, want) -> float:
+    """max|got - want| over max|want|; one bf16 ulp of the largest output is 2^-7 of it."""
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+# Ragged channel counts (masked scalar loads), multiples of 8 (16-byte bf16
+# copies) and the main path's 8x8 / C=384 level, in bf16; the same bits twice.
+@pytest.mark.parametrize(
+    "t_in,b,hw,c", [(3, 2, 5, 6), (1, 2, 8, 70), (3, 3, 9, 40), (3, 2, 12, 48), (1, 2, 8, 384),
+                    (3, 16, 64, 48)],
+)
+def test_convgru_rollout_bf16_kernel_matches_plain(dev, t_in, b, hw, c):
+    args = [a.bfloat16() for a in gru_inputs(np.random.default_rng(7), t_in, b, hw, c, dev)]
+    f32, bf16 = convgru_rollout.launches, convgru_rollout.launches_bf16
+    got = convgru_rollout(*args, n_steps=3)
+    assert (convgru_rollout.launches, convgru_rollout.launches_bf16 - bf16) == (f32, 1)
+    assert got.dtype == torch.bfloat16
+    want = convgru_rollout_reference(*args, n_steps=3)
+    torch.cuda.synchronize()
+    assert bf16_rel_err(got, want) <= 2.0**-7
+    assert torch.equal(got, convgru_rollout(*args, n_steps=3))
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(2, 7, 5, 6, 6), (3, 8, 9, 20, 12), (2, 6, 6, 70, 70), (4, 8, 8, 128, 128), (4, 9, 7, 96, 64),
+     (36, 64, 64, 96, 96), (36, 16, 16, 384, 192)],
+)
+def test_gblock_fused_bf16_kernel_matches_plain(dev, n, h, w, cin, cout):
+    args = gblock_inputs(np.random.default_rng(8), n, h, w, cin, cout, dev)
+    args = [a.bfloat16() for a in args[:4]] + args[4:]  # the affines stay f32
+    f32, bf16 = gblock_fused.launches, gblock_fused.launches_bf16
+    got = gblock_fused(*args)
+    assert (gblock_fused.launches, gblock_fused.launches_bf16 - bf16) == (f32, 2)
+    assert got.dtype == torch.bfloat16
+    want = gblock_fused_reference(*args)
+    torch.cuda.synchronize()
+    assert bf16_rel_err(got, want) <= 2.0**-7
+    assert torch.equal(got, gblock_fused(*args))
+
+
+def test_bf16_request_runs_only_bf16_kernels(dev):
+    model = random_fill(DGMR(**TINY).eval(), torch.Generator().manual_seed(0))
+    x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+    counts = lambda: (convgru_rollout.launches, gblock_fused.launches,  # noqa: E731
+                      convgru_rollout.launches_bf16, gblock_fused.launches_bf16)
+    before = counts()
+    out = make_generate(model, num_samples=2)(x.bfloat16(), torch.Generator().manual_seed(2))
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 2 * 4, 2 * 4 * 2)
+    ref = make_generate(model, num_samples=2)(x, torch.Generator().manual_seed(2))
+    assert (out.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-3) < 0.15
+
+
+def test_artifact_exported_and_served_on_the_card(dev, tmp_path):
+    model = random_fill(DGMR(**TINY, num_samples=2).eval(), torch.Generator().manual_seed(0))
+    path = str(tmp_path / "tiny.dgmrx")
+    meta = serving.save_exported(path, model, batch_size=3, microbatch=2)
+    assert meta["device_type"] == "cuda"
+    server = serving.load_exported(path).place()  # the card by default
+    assert {w.device.type for w in server.weights} == {"cuda"}
+    x = torch.rand((3, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+    gru = convgru_rollout.launches
+    out = server.generate(x, seed=5)
+    assert convgru_rollout.launches - gru == 2 * 2 * 4  # samples x chunks x levels
+    want = make_generate(model, microbatch=2)(x, torch.Generator().manual_seed(5))
+    assert (out - want).abs().max().item() <= 1e-6
+    with pytest.raises(ValueError, match="'cuda'.*'cpu'"):
+        serving.load_exported(path).place("cpu").generate(x, seed=5)

@@ -17,7 +17,8 @@ rounding of the train-mode BatchNorm statistics past 1e-3 of some tensors
 implementation can match; at f64 the comparison separates semantics from
 rounding. A conv bias in front of a train-mode
 BatchNorm has a true gradient of 0, so each tensor's max-abs is floored at
-1e-6 of the largest in its group. Each JAX step is compiled once per module.
+1e-6 of the largest in its group. The JAX train step is compiled once per
+test run, whatever the number of xdist workers (``run_once``).
 """
 
 import threading
@@ -36,7 +37,7 @@ from skillful_nowcasting_tpu.hub.pretrained import abstract_variables
 from skillful_nowcasting_tpu.utils import random_fill_variables
 from skillful_nowcasting_tpu_torch import DGMR, losses, training
 from skillful_nowcasting_tpu_torch.hub import load_variables, state_dict_from_variables
-from torch_port_helpers import f64, perturb, t
+from torch_port_helpers import f64, perturb, run_once, t
 
 torch.set_num_threads(1)
 
@@ -115,49 +116,63 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def steps(setup):
+def steps(setup, tmp_path_factory):
     """One JAX train step and the port's (rollout recompute on and off), all float64.
 
-    XLA compiles the JAX step outside the interpreter lock, so the port's
-    steps run meanwhile.
+    The JAX step is compiled once per test run (``run_once``): the first
+    xdist worker compiles and runs it, XLA compiling outside the interpreter
+    lock while the port's steps run, and writes its outputs to a file that
+    every other worker loads. The port's steps run on every worker.
     """
     jmodel, variables, x, y, _ = setup
     key = jax.random.key(7)
     n = TINY["generation_steps"]
     with jax.enable_x64(True):
         v64 = f64(variables)
-        sgd = (optax.sgd(LR[0]), optax.sgd(LR[1]))
-        g0, d0 = jtraining.split_params(v64["params"])
-        state = jtraining.TrainState(
-            params=v64["params"], batch_stats=v64["batch_stats"], spectral=v64["spectral"],
-            g_opt_state=sgd[0].init(g0), d_opt_state=sgd[1].init(d0), step=jnp.zeros((), jnp.int32),
-        )
-        step = jax.jit(jtraining.make_train_step(
-            jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
-            compute_dtype=jnp.float64))
-        args = (state, x.astype(np.float64), y.astype(np.float64), key)
-        lowered, compiled = step.lower(*args), []
-        compiling = threading.Thread(target=lambda: compiled.append(lowered.compile()))
-        compiling.start()
+        args = (None, x.astype(np.float64), y.astype(np.float64), key)
         # The step's key order (training.py:450-455): d_lat, d_fr, g_lat, g_fr, log.
         keys = jax.random.split(key, 2 * 2 + 2 * n + 1)
         zs, fr = recovered_draws(jmodel, v64, [*keys[:2], *keys[4:4 + n]],
                                  [*keys[2:4], *keys[4 + n:4 + 2 * n]], 6, torch.float64)
     draws = training.StepDraws(d_z=zs[:2], d_frames=fr[:2], g_z=zs[2:], g_frames=fr[2:])
 
-    got = {}
-    for remat in (True, False):
-        model = port_model(variables, torch.float64)
-        state_t = sgd_state(model)
-        step_t = training.make_train_step(
-            model, logging_forward=False, return_grads=True, rollout_remat=remat)
-        metrics_t = step_t(state_t, t(np.moveaxis(x, -1, 2)).double(),
-                           t(np.moveaxis(y, -1, 2)).double(), draws=draws)
-        got[remat] = (model, metrics_t)
-    compiling.join()
-    with jax.enable_x64(True):
-        want = jax.tree.map(np.array, compiled[0](*args))
-    return want, got
+    def start():
+        with jax.enable_x64(True):
+            sgd = (optax.sgd(LR[0]), optax.sgd(LR[1]))
+            g0, d0 = jtraining.split_params(v64["params"])
+            state = jtraining.TrainState(
+                params=v64["params"], batch_stats=v64["batch_stats"], spectral=v64["spectral"],
+                g_opt_state=sgd[0].init(g0), d_opt_state=sgd[1].init(d0),
+                step=jnp.zeros((), jnp.int32),
+            )
+            step = jax.jit(jtraining.make_train_step(
+                jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
+                compute_dtype=jnp.float64))
+            full = (state, *args[1:])
+            lowered, compiled = step.lower(*full), []
+        compiling = threading.Thread(target=lambda: compiled.append(lowered.compile()))
+        compiling.start()
+
+        def finish():
+            compiling.join()
+            with jax.enable_x64(True):
+                return jax.tree.map(np.array, compiled[0](*full))
+
+        return finish
+
+    def port_steps():
+        got = {}
+        for remat in (True, False):
+            model = port_model(variables, torch.float64)
+            state_t = sgd_state(model)
+            step_t = training.make_train_step(
+                model, logging_forward=False, return_grads=True, rollout_remat=remat)
+            metrics_t = step_t(state_t, t(np.moveaxis(x, -1, 2)).double(),
+                               t(np.moveaxis(y, -1, 2)).double(), draws=draws)
+            got[remat] = (model, metrics_t)
+        return got
+
+    return run_once(tmp_path_factory, "test_torch_train_jax_step", start, port_steps)
 
 
 def test_train_step_metrics_match_jax(steps):

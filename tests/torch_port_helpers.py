@@ -6,13 +6,22 @@ the attention ``gamma`` are perturbed so the BN fold, the bias paths and
 quirk Q1 are exercised (``gamma`` starts at 0). The tree is carried into the
 port by ``state_dict_from_variables`` and ``load_state_dict(strict=True)``.
 Arrays cross between the frameworks as numpy copies.
+
+An expensive JAX reference (a compiled train step, a model forward) is
+computed once per test run and shared by every xdist worker through a file
+(:func:`run_once`), so no worker compiles it again.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
+from pathlib import Path
+
 import jax
 import numpy as np
 import torch
+from filelock import FileLock, Timeout
 
 from skillful_nowcasting_tpu.utils import random_fill_variables
 from skillful_nowcasting_tpu_torch.hub import state_dict_from_variables
@@ -81,3 +90,69 @@ def nchw_to_nhwc(x: torch.Tensor) -> np.ndarray:
 def randn(rng, *shape, scale: float = 1.0) -> np.ndarray:
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
+
+
+def _shared_dir(tmp_path_factory) -> Path:
+    """The directory every xdist worker of this run shares (the base temp dir without xdist)."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def _save_tree(path: Path, tree) -> None:
+    leaves, treedef = jax.tree.flatten(tree)
+    spec = np.frombuffer(pickle.dumps(treedef), np.uint8)
+    tmp = path.with_name(path.name + ".tmp.npz")
+    np.savez(tmp, *[np.asarray(leaf) for leaf in leaves], treedef=spec)
+    os.replace(tmp, path)
+
+
+def _load_tree(path: Path):
+    with np.load(path) as f:
+        treedef = pickle.loads(f["treedef"].tobytes())  # written by _save_tree in this run
+        leaves = [f[f"arr_{i}"] for i in range(len(f.files) - 1)]
+    return jax.tree.unflatten(treedef, leaves)
+
+
+def run_once(tmp_path_factory, name: str, start, meanwhile=lambda: None):
+    """A JAX reference computed once per test run: ``(reference, meanwhile())``.
+
+    ``start()`` begins the reference (e.g. a compile on a thread) and returns
+    ``finish()``, which returns it as a tree of arrays. The first worker to
+    take the file lock starts it, runs ``meanwhile()`` (the port's own half,
+    per worker) while it computes, finishes it and writes it as ``.npz`` in
+    the directory all xdist workers share; any other worker runs
+    ``meanwhile()`` first, then waits on the lock and loads the file. Every
+    worker gets the loaded copy, so all compare against the same arrays.
+    """
+    path = _shared_dir(tmp_path_factory) / f"{name}.npz"
+    lock = FileLock(str(path) + ".lock")
+    try:
+        lock.acquire(timeout=0)
+    except Timeout:
+        other = meanwhile()
+        with lock:
+            return _load_tree(path), other
+    try:
+        if path.exists():
+            other = meanwhile()
+        else:
+            finish = start()
+            other = meanwhile()
+            _save_tree(path, finish())
+        return _load_tree(path), other
+    finally:
+        lock.release()
+
+
+def jax_latents(jmodel, variables, keys) -> np.ndarray:
+    """The latent a JAX DGMR forward draws under ``rngs={"latent": k}``, per key: NCHW ``(n, 8C, h, w)``.
+
+    The JAX latent stack's first ``make_rng("latent")`` (``models/common.py:298-300``).
+    """
+
+    def latent(mdl):
+        c, h, w = mdl.latent_stack.shape
+        return jax.random.normal(mdl.latent_stack.make_rng("latent"), (1, h, w, c), np.float32)
+
+    zs = [np.array(jmodel.apply(variables, method=latent, rngs={"latent": k})) for k in keys]
+    return np.moveaxis(np.concatenate(zs), -1, 1)
