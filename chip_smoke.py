@@ -5,14 +5,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: needs CUDA; prints the card's name and power limit; TF32 off.
 2. Build: compiles the hand-written kernels from ``skillful_nowcasting_tpu_torch/csrc``
-   and prints ptxas's registers, shared memory and spills per kernel.
+   and prints ptxas's registers, shared memory and spills per kernel, and the
+   number of HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+   kernel's SASS (``cuobjdump -sass``); the bf16 kernels must show both and
+   no spill.
 3. Kernels vs their plain PyTorch versions on the card, at the main paths'
    shapes: a request's batch (B=2) and the tile batch of tiled_nowcast_device
    (B=16 tiles, N=288 GBlock rows), each in f32 and in bf16; max-abs
    difference <= 1e-4 (f32) or <= 2^-7 of max|plain| (bf16: one bf16 ulp of
    the largest output), the same bits on a second call; times from CUDA
    events, beside the bound (the larger of FLOPs at the tensor-core peak,
-   3xTF32 for f32 and bf16 for bf16, and bytes at the memory peak).
+   3xTF32 for f32 and bf16 for bf16, and bytes at the memory peak). Beside
+   each bf16 GBlock shape, a conv yardstick: cuDNN's bf16 ``F.conv2d``
+   (channels_last) for the block's two 3x3 convs (a diagnostic; the port
+   never calls it).
 4. The slice at full width: ``DGMR()`` (on the card by default; 256x256, 18
    steps, latent 768, context 384, 6 samples) with seeded random weights
    answers 3 requests through ``make_generate`` from a CPU batch; both
@@ -49,7 +55,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    each other (<= 1e-4), ``fetch_stripes=3`` bit-identical to 1, the seam
    ratio printed.
 11. One MRMS CONUS field, 3500x7000, 18 steps, through
-   ``tiled_nowcast_device``: seconds, tiles/s, peak memory.
+   ``tiled_nowcast_device``: seconds, tiles/s, peak memory; the same field
+   handed over on the card gives the same bits.
 12. ``evaluate_nowcast`` at full width, S=6, B=2, 2 batches: finite metrics.
 13. ``tiled_nowcast_device`` and ``evaluate_nowcast`` at the tiny config on
    the card and on the CPU, fixed latents: max-abs <= 1e-3.
@@ -58,8 +65,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    save and load seconds and bytes; 3 requests through
    ``NowcastServer.generate`` (72 / 144 launches); the first against
    ``make_generate(model)(x, torch.Generator().manual_seed(seed))`` (max-abs
-   <= 1e-6, bit equality printed); one sampler weight replaced changes the
-   output; a ``compute_dtype=torch.bfloat16`` artifact returns finite f32.
+   <= 1e-6, bit equality printed); a card-resident ``x`` gives the host
+   ``x``'s bits; one sampler weight replaced changes the output; a
+   ``compute_dtype=torch.bfloat16`` artifact returns finite f32.
 15. bf16 at full width: 3 requests of B=2, S=6 from a bf16 batch (frames/s,
    latency, 4 / 8 bf16 launches a forward and no f32 launch); bf16 against
    f32 on fixed latents below 0.15 of scale; one MRMS 3500x7000 field through
@@ -168,6 +176,55 @@ def gblock_work(n: int, hw: int, cin: int, cout: int, elem: int = 4):
     flops = 2.0 * m * 9 * cin * (cin + cout) + (2.0 * m * cin * cout if sc else 0.0)
     values = m * (cin + cout) + 9 * cin * (cin + cout) + (cin * cout if sc else 0)
     return flops, elem * values + 4.0 * (4 * cin + cout)
+
+
+BF16_KERNELS = ("gru_rollout_bf16_kernel", "gblock_conv1_bf16_kernel", "gblock_conv2_bf16_kernel")
+KERNEL_FUNCTIONS = ("gru_rollout_kernel", "gblock_conv1_kernel", "gblock_conv2_kernel",
+                    *BF16_KERNELS)
+
+
+def kernel_label(mangled: str) -> str | None:
+    """``name<template argument>`` of one of the port's kernels from its mangled symbol."""
+    import re
+
+    for name in KERNEL_FUNCTIONS:
+        if re.search(rf"\d{name}I", mangled):
+            return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled))}>"
+    return None
+
+
+def sass_counts(_build) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel in the library's SASS."""
+    from pathlib import Path
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            label = kernel_label(line.split("Function : ", 1)[1].strip())
+            if label is not None:
+                counts[label] = {"HGMMA": 0, "UTMALDG": 0}
+        elif label is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[label][op] += op in line
+    return counts
+
+
+def spills(report: str) -> dict:
+    """Spill bytes (stores + loads) per kernel from ptxas's report."""
+    import re
+
+    out, label = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            label = kernel_label(line.split("'")[1])
+        elif label is not None and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line).groups()
+            out[label] = int(stores) + int(loads)
+    return out
 
 
 def serving_model(torch, dev):
@@ -659,6 +716,16 @@ def mrms_field(torch, model, card, counters) -> dict:
         fail(f"MRMS field: output {out.shape}, finite {np.isfinite(out).all()}")
     print(f"MRMS {h}x{w}, 18 steps: {seconds:.4f} s, {n_tiles / seconds:.2f} tiles/s, "
           f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated) on {card}")
+    field = torch.from_numpy(frames).to(next(model.parameters()).device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tiled_nowcast_device(model, field, z=z)
+    seconds = time.perf_counter() - t0
+    same = bool(np.array_equal(again, out))
+    print(f"MRMS {h}x{w} from a field already on the card: {seconds:.4f} s, "
+          f"bit-identical to the host field: {same}")
+    if not same:
+        fail("tiled_nowcast_device: a card-resident field gives other bits than the host field")
     return {"mrms_field": launches}
 
 
@@ -772,6 +839,10 @@ def artifact_full_width(torch, dev, model, card, counters) -> dict:
               f"max_abs_err {err:.3e}, bit-identical {torch.equal(out, want)}")
         if not err <= ARTIFACT_TOL:
             fail(f"artifact and make_generate differ by {err} > {ARTIFACT_TOL}")
+        same = torch.equal(server.generate(x.to(dev), seed=80), out)
+        print(f"artifact generate from a card-resident x: bit-identical to the host x: {same}")
+        if not same:
+            fail("artifact: a card-resident x gives other bits than the host x")
 
         # One forward, the program against the eager model, alternating: the synchronized
         # wall and the host's share (until the call returns, before the synchronize).
@@ -928,9 +999,21 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc on first use, else the cached library)")
-    for line in _build.ptxas_report().splitlines():
+    report = _build.ptxas_report()
+    for line in report.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
+    spilled = spills(report)
+    for label, counts in sass_counts(_build).items():
+        print(f"sass {label}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG, "
+              f"spill {spilled.get(label, 'not reported')} bytes")
+        if label.split("<")[0] in BF16_KERNELS:
+            if not (counts["HGMMA"] and counts["UTMALDG"]):
+                fail(f"{label}: no HGMMA or no UTMALDG in its SASS: {counts}")
+            if spilled.get(label) != 0:
+                fail(f"{label}: ptxas reports {spilled.get(label)} bytes of spill")
+    if not any(label.split("<")[0] in BF16_KERNELS for label in spilled):
+        fail("no bf16 kernel in ptxas's report")
 
     # 3. Kernels vs plain versions, at the main path's shapes, in f32 and in bf16.
     gen = torch.Generator().manual_seed(0)
@@ -1015,6 +1098,16 @@ def main() -> None:
                 compare(f"gblock_fused{suffix}", gblock_fused, gblock_fused_reference, args,
                         f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
                         work=gblock_work(n, hw, cin, cout, elem), kind=kind, bucket=bucket)
+                if kind == "bf16":  # NHWC memory viewed as NCHW is channels_last
+                    xc = args[0].permute(0, 3, 1, 2)
+                    w1, w2 = (k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                              for k in args[1:3])
+                    conv = torch.nn.functional.conv2d
+                    yard = time_ms(torch, lambda: conv(conv(xc, w1, padding=1), w2, padding=1),
+                                   reps)
+                    print(f"gblock_fused_bf16 x={tuple(args[0].shape)} cout={cout}: conv "
+                          f"yardstick (cuDNN bf16 F.conv2d, channels_last, the block's two 3x3 "
+                          f"convs, no affine or shortcut) {yard:.4f} ms")
                 del args
     torch.cuda.empty_cache()
 

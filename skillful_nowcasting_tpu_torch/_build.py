@@ -44,8 +44,7 @@ SIGNATURES = {
     "gru_rollout_f32": [_P] * 9 + [_I] * 6 + [_P],
     "gblock_conv1_f32": [_P] * 7 + [_I] * 4 + [_P],
     "gblock_conv2_f32": [_P] * 6 + [_I] * 6 + [_P],
-    "gru_rollout_workspace_bf16": [_I] * 4 + [_P],
-    "gru_rollout_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    "gru_rollout_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "gblock_conv1_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "gblock_conv2_bf16": [_P] * 6 + [_I] * 6 + [_P],
 }

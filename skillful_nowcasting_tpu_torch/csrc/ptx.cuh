@@ -1,12 +1,11 @@
-// Thin wrappers over the PTX the port's kernels use (sm_80+ instructions,
+// Thin wrappers over the PTX the port's f32 kernels use (sm_80+ instructions,
 // built for sm_90a): cp.async with zero-fill, the 3xTF32 operand split, the
-// m16n8k8 TF32 and m16n8k16 bf16 tensor-core products, bf16 conversions and
-// an L2 prefetch. bf16 values travel as their raw bits (uint16_t).
+// m16n8k8 TF32 tensor-core product and an L2 prefetch. The bf16 kernels'
+// Hopper instructions are in hopper.cuh.
 
 #pragma once
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dgmr {
@@ -17,11 +16,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-// The same copy for any element type (bf16 bits or float).
-__device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src, bool valid) {
-  cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), valid);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -53,31 +47,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a * b for one 16x8x16 bf16 tile, f32 accumulators (mma.sync.m16n8k16:
-// a row-major 16x16, b column-major 16x8, d row-major 16x8 as for m16n8k8).
-// Each register holds two bf16, the lower k in the lower half.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16 bits -> f32 (exact) and f32 -> bf16 bits (round to nearest even).
-__device__ __forceinline__ float bf16_to_f32(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-__device__ __forceinline__ uint16_t f32_to_bf16(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-}
-
-// Two f32 rounded to bf16 and packed, lo in the lower half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(f32_to_bf16(lo)) | (static_cast<uint32_t>(f32_to_bf16(hi)) << 16);
 }
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {

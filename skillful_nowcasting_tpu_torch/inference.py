@@ -302,7 +302,9 @@ def tiled_nowcast(
     Args:
         model: an eval-mode DGMR or Generator whose forward maps
             ``(N, T_in, C, tile, tile)`` to ``(N, T_out, C, tile, tile)``.
-        frames: context frames ``(T_in, C, H, W)``, e.g. MRMS 3500x7000.
+        frames: context frames ``(T_in, C, H, W)``, e.g. MRMS 3500x7000: a
+            numpy array or a tensor of any float dtype on any device (taken
+            to the host as float32).
         tile: the model's input size (its ``output_shape``).
         overlap: overlap of neighbouring tiles; interior seams crop
             ``overlap/2``, domain edges keep the full tile (the last tile of
@@ -320,7 +322,10 @@ def tiled_nowcast(
     """
     device = _tiling(model, tile, overlap, batch_tiles, dtype)
     dtype = dtype or torch.float32
-    frames = np.asarray(frames, np.float32)
+    if isinstance(frames, torch.Tensor):  # this tiler streams from the host by design
+        frames = frames.detach().to("cpu", torch.float32).numpy()
+    else:
+        frames = np.asarray(frames, np.float32)
     t_in, c, h, w = frames.shape
     stride, margin = tile - overlap, overlap // 2
     z = _shared_latent(model, c, tile, z, generator, device, dtype)
@@ -380,13 +385,18 @@ def tiled_nowcast_device(
     whatever the stripe count, so the result is bit-identical to one stripe.
     With ``dtype=torch.bfloat16`` the field lives on the device in bf16 and
     the tile forwards run in bf16; the stitched output buffer is f32. Other
-    arguments and the result as for :func:`tiled_nowcast`.
+    arguments and the result as for :func:`tiled_nowcast`, except that a
+    ``frames`` tensor already on the model's device is cast there (to
+    float32, then ``dtype``) and never passes through the host.
     """
     device = _tiling(model, tile, overlap, batch_tiles, dtype)
     dtype = dtype or torch.float32
     if fetch_stripes < 1:
         raise ValueError(f"fetch_stripes must be at least 1, got {fetch_stripes}")
-    field = torch.as_tensor(np.asarray(frames, np.float32)).to(device, dtype)
+    if isinstance(frames, torch.Tensor):  # a field on the card stays there
+        field = frames.detach().to(torch.float32).to(device, dtype)
+    else:
+        field = torch.as_tensor(np.asarray(frames, np.float32)).to(device, dtype)
     t_in, c, h, w = field.shape
     margin, stride = overlap // 2, tile - overlap
     z = _shared_latent(model, c, tile, z, generator, device, dtype)

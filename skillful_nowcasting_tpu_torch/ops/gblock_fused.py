@@ -10,13 +10,15 @@ with BN folded into the affines and spectral norm into the kernels. The public
 function keeps the JAX layouts (NHWC activations, HWIO kernels) and is the
 ``torch.library`` custom op ``dgmr::gblock_fused``, so ``torch.export``
 records it as one node. On a CUDA tensor it launches the two tensor-core
-kernels of ``csrc/gblock_fused.cu`` for its dtype (float32 or bfloat16); on
-a CPU tensor the plain version runs.
+kernels of ``csrc/gblock_fused.cu`` for its dtype (float32: 3xTF32
+``mma.sync``; bfloat16: ``wgmma`` fed by TMA); on a CPU tensor the plain
+version runs.
 
 bf16 follows the TPU kernel given bf16 operands: ``x`` and the kernels are
 bf16, the affines f32; ``relu(a1 * x + b1)`` and ``mid`` are computed in f32
 and rounded to bf16 as they enter a conv; sums are f32 and the output is
-rounded to bf16 once.
+rounded to bf16 once. The bf16 kernels store ``mid`` already rounded (the
+same bits) and take the weights in OHWI (output channels as K-major rows).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .tma import aligned16, ohwi
 
 
 def fold_gblock_variables(block, dtype=None):
@@ -133,24 +136,76 @@ def _launch(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
     if n * h * w * max(cin, cout) >= 2**31:
         raise ValueError("gblock_fused: x is too large for 32-bit indexing")
 
-    suffix = "f32" if x.dtype == torch.float32 else "bf16"
+    if x.dtype == torch.bfloat16:
+        return _launch_bf16(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
     mid = torch.empty((n, h, w, cin), device=x.device, dtype=torch.float32)
     out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         _build.call(
-            f"gblock_conv1_{suffix}",
+            "gblock_conv1_f32",
             _ptr(x), _ptr(k1), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
             n, h, w, cin, stream,
         )
         _count(x.dtype)
         _build.call(
-            f"gblock_conv2_{suffix}",
+            "gblock_conv2_f32",
             _ptr(mid), _ptr(x), _ptr(k2), _ptr(ksc), _ptr(b_out), _ptr(out), int(use_sc_conv),
             n, h, w, cin, cout, stream,
         )
         _count(x.dtype)
     return out
+
+
+def pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out):
+    """The GBlock's operands with Cin and Cout zero-padded to multiples of 8.
+
+    TMA, which feeds the bf16 kernels, needs 16-byte strides. Zero weights
+    and zero ``a1``/``b1`` make every padded channel of ``mid`` and of the
+    output exactly 0 and add exact zeros to every sum, so the first Cout
+    channels of the padded block are the block.
+    """
+    cin, cout = x.shape[-1], k2.shape[-1]
+    pi, po = -(-cin // 8) * 8 - cin, -(-cout // 8) * 8 - cout
+    if pi or po:
+        x = F.pad(x, (0, pi))
+        k1 = F.pad(k1, (0, pi, 0, pi))
+        k2 = F.pad(k2, (0, po, 0, pi))
+        ksc = F.pad(ksc, (0, po, 0, pi))
+        a1, b1, a2, b2 = (F.pad(v, (0, pi)) for v in (a1, b1, a2, b2))
+        b_out = F.pad(b_out, (0, po))
+    return x, k1, k2, ksc, a1, b1, a2, b2, b_out
+
+
+def _launch_bf16(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
+    """The two bf16 kernels (wgmma + TMA) on :func:`pad_channels`' operands, weights in OHWI.
+
+    ``mid`` is bf16: conv1 stores it as conv2 would round it on entry.
+    """
+    cout = k2.shape[-1]
+    x, k1, k2, ksc, a1, b1, a2, b2, b_out = pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out)
+    n, h, w, ci = x.shape
+    co = k2.shape[-1]
+    k1t, k2t = ohwi(k1), ohwi(k2)
+    ksct = ohwi(ksc) if use_sc_conv else k2t  # not read with the identity shortcut
+    x = aligned16(x)
+    mid = torch.empty((n, h, w, ci), device=x.device, dtype=torch.bfloat16)
+    out = torch.empty((n, h, w, co), device=x.device, dtype=torch.bfloat16)
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        _build.call(
+            "gblock_conv1_bf16",
+            _ptr(x), _ptr(k1t), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
+            n, h, w, ci, stream,
+        )
+        _count(x.dtype)
+        _build.call(
+            "gblock_conv2_bf16",
+            _ptr(mid), _ptr(x), _ptr(k2t), _ptr(ksct), _ptr(b_out), _ptr(out),
+            int(use_sc_conv), n, h, w, ci, co, stream,
+        )
+        _count(x.dtype)
+    return out if co == cout else out[..., :cout].contiguous()
 
 
 def _count(dtype) -> None:

@@ -13,13 +13,17 @@ Each step computes
 and all ``T`` states are returned. The rollout is the ``torch.library``
 custom op ``dgmr::convgru_rollout``, so ``torch.export`` records it as one
 node. On a CUDA tensor one persistent cooperative launch of
-``csrc/gru_rollout.cu`` runs every step: the f32 kernel for float32
-operands, the bf16 kernel for bfloat16 ones (see the notes there for the
-designs and what bounds them); on a CPU tensor the plain version runs.
+``csrc/gru_rollout.cu`` runs every step: the f32 kernel (3xTF32
+``mma.sync``, split-K) for float32 operands, the bf16 kernel
+(weight-stationary ``wgmma`` fed by TMA) for bfloat16 ones (see the notes
+there for the designs and what bounds them); on a CPU tensor the plain
+version runs.
 
-bf16 follows the TPU kernel given bf16 operands: ``h`` and ``r * h`` stay f32
-for the whole rollout and are rounded to bf16 as they enter a conv, sums are
-f32, and each output state is rounded to bf16 once.
+bf16 follows the TPU kernel given bf16 operands: ``h`` and ``r * h`` are
+f32 and are rounded to bf16 as they enter a conv, sums are f32, and each
+output state is rounded to bf16 once. The bf16 kernel keeps ``h`` in f32
+for the update and stores the two conv inputs already rounded (the same
+bits).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .tma import aligned16, ohwi
 
 
 def _static(gx_seq: torch.Tensor, n_steps: Optional[int]) -> tuple[int, bool]:
@@ -122,35 +127,73 @@ def _launch(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
     if gx_seq.numel() >= 2**31:
         raise ValueError("convgru_rollout: gx_seq is too large for 32-bit indexing")
 
+    if t > 0 and dtype == torch.bfloat16:
+        return _launch_bf16(gx_seq, h0, k_ru, k_c, bias, t)
     out = torch.empty((t, b, h, w, c), device=gx_seq.device, dtype=dtype)
     if t == 0:
         return out
-    suffix = "f32" if dtype == torch.float32 else "bf16"
     with torch.cuda.device(gx_seq.device):
         floats = ctypes.c_longlong()
-        _build.call(f"gru_rollout_workspace_{suffix}", b, h, w, c, ctypes.byref(floats))
+        _build.call("gru_rollout_workspace_f32", b, h, w, c, ctypes.byref(floats))
         rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
         u = torch.empty_like(rh)
         part = torch.empty(floats.value, device=gx_seq.device, dtype=torch.float32)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        if dtype == torch.float32:
-            _build.call(
-                "gru_rollout_f32",
-                _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
-                _ptr(rh), _ptr(u), _ptr(part),
-                b, h, w, c, t, gx_seq.shape[0], stream,
-            )
-            convgru_rollout.launches += 1
-        else:
-            hbuf = torch.empty_like(rh)  # h in f32 for the whole rollout
-            _build.call(
-                "gru_rollout_bf16",
-                _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
-                _ptr(hbuf), _ptr(rh), _ptr(u), _ptr(part),
-                b, h, w, c, t, gx_seq.shape[0], stream,
-            )
-            convgru_rollout.launches_bf16 += 1
+        _build.call(
+            "gru_rollout_f32",
+            _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
+            _ptr(rh), _ptr(u), _ptr(part),
+            b, h, w, c, t, gx_seq.shape[0], stream,
+        )
+        convgru_rollout.launches += 1
     return out
+
+
+def pad_channels(gx_seq, h0, k_ru, k_c, bias):
+    """The rollout's operands with C zero-padded to a multiple of 8, and that C.
+
+    TMA, which feeds the bf16 kernel, needs 16-byte strides. gx and bias are
+    [read C | update C | candidate C] and ``k_ru``'s outputs [read C | update
+    C], so each gate block pads to C8 on its own, as do the input channels
+    of both kernels and ``h0``. A padded channel then stays exactly 0
+    (0.5 * 0 + 0.5 * relu(0)) and adds exact zeros to every sum, so the first
+    C channels of the padded rollout are the rollout.
+    """
+    c = h0.shape[-1]
+    pad = -(-c // 8) * 8 - c
+    if pad:
+        gx_seq = F.pad(gx_seq.unflatten(-1, (3, c)), (0, pad)).flatten(-2)
+        bias = F.pad(bias.view(3, c), (0, pad)).flatten()
+        h0 = F.pad(h0, (0, pad))
+        k_ru = F.pad(k_ru.unflatten(-1, (2, c)), (0, pad, 0, 0, 0, pad)).flatten(-2)
+        k_c = F.pad(k_c, (0, pad, 0, pad))
+    return gx_seq, h0, k_ru, k_c, bias, c + pad
+
+
+def _launch_bf16(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
+    """The bf16 kernel (weight-stationary, wgmma + TMA) on :func:`pad_channels`' operands.
+
+    The kernels go in OHWI (output channels as K-major rows).
+    """
+    b, h, w, c = h0.shape
+    gx_seq, h0, k_ru, k_c, bias, c8 = pad_channels(gx_seq, h0, k_ru, k_c, bias)
+    k_ru_t, k_c_t = ohwi(k_ru), ohwi(k_c)
+    gx_seq, h0, bias = aligned16(gx_seq), aligned16(h0), aligned16(bias)
+    dev = gx_seq.device
+    out = torch.empty((t, b, h, w, c8), device=dev, dtype=torch.bfloat16)
+    hbuf = torch.empty((b, h, w, c8), device=dev, dtype=torch.float32)  # h, f32, all T steps
+    u = torch.empty_like(hbuf)
+    rh = torch.empty((b, h, w, c8), device=dev, dtype=torch.bfloat16)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        _build.call(
+            "gru_rollout_bf16",
+            _ptr(gx_seq), _ptr(h0), _ptr(k_ru_t), _ptr(k_c_t), _ptr(bias), _ptr(out),
+            _ptr(hbuf), _ptr(rh), _ptr(u),
+            b, h, w, c8, t, gx_seq.shape[0], stream,
+        )
+        convgru_rollout.launches_bf16 += 1
+    return out if c8 == c else out[..., :c].contiguous()
 
 
 @torch.library.custom_op("dgmr::convgru_rollout", mutates_args=())

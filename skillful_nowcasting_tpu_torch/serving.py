@@ -220,7 +220,11 @@ class NowcastServer:
     _latent_shape: Optional[tuple] = field(default=None, repr=False)
 
     def generate(self, x, seed: int = 0) -> torch.Tensor:
-        """The ``(S, B, T, C, H, W)`` float32 ensemble for context ``x`` ``(B, T_in, C, H, W)``."""
+        """The ``(S, B, T, C, H, W)`` float32 ensemble for context ``x`` ``(B, T_in, C, H, W)``.
+
+        ``x`` is a numpy array or a tensor of any float dtype on the host or the
+        card; it is cast to float32 on its way to the weights' device.
+        """
         device = self.weights[0].device
         want = self.meta["device_type"]
         if device.type != want:
@@ -237,7 +241,10 @@ class NowcastServer:
                 f"meta['latent_rng'] = {self.meta.get('latent_rng')} disagrees with the "
                 f"program's latent contract {record}"
             )
-        x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
+        if isinstance(x, torch.Tensor):  # any float dtype, on the host or the card
+            x = x.detach().to(torch.float32).to(device)
+        else:
+            x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
         if list(x.shape) != list(self.meta["input_shape"]):
             raise ValueError(f"x has shape {tuple(x.shape)}, the artifact takes "
                              f"{tuple(self.meta['input_shape'])}")

@@ -10,14 +10,17 @@ without them (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from skillful_nowcasting_tpu_torch import DGMR, serving, training
+from skillful_nowcasting_tpu_torch import DGMR, _build, serving, training
 from skillful_nowcasting_tpu_torch.inference import (
     evaluate_nowcast,
     make_generate,
+    tiled_nowcast,
     tiled_nowcast_device,
 )
 from skillful_nowcasting_tpu_torch.ops import (
@@ -136,6 +139,34 @@ def test_kernel_wrappers_refuse_bad_input(dev):
         convgru_rollout(args[0], args[1], args[2][..., :3], *args[3:])
     with pytest.raises(ValueError, match="CUDA device"):
         convgru_rollout(args[0], args[1].cpu(), *args[2:])
+    # The bf16 wrappers check the same, and a refused launch raises.
+    bf = [a.bfloat16() for a in gru_inputs(np.random.default_rng(2), 2, 1, 8, 8, dev)]
+    with pytest.raises(ValueError, match="contiguous"):
+        convgru_rollout(bf[0], bf[1].transpose(1, 2), *bf[2:])
+    with pytest.raises(ValueError, match="shape"):
+        convgru_rollout(bf[0], bf[1], bf[2][..., :3], *bf[3:])
+    with pytest.raises(TypeError, match="bfloat16"):
+        convgru_rollout(bf[0], args[1].new_zeros(bf[1].shape), *bf[2:])
+    gb = gblock_inputs(np.random.default_rng(4), 2, 8, 8, 16, 16, dev)
+    gb = [a.bfloat16() for a in gb[:4]] + gb[4:]
+    with pytest.raises(ValueError, match="shape"):
+        gblock_fused(gb[0], gb[1][..., :8], *gb[2:])
+    with pytest.raises(ValueError, match="CUDA device"):
+        gblock_fused(gb[0], gb[1].cpu(), *gb[2:])
+    with pytest.raises(TypeError, match="float32"):
+        gblock_fused(*gb[:4], gb[4].bfloat16(), *gb[5:])
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    x = gb[0]
+    with pytest.raises(RuntimeError, match="gblock_conv1_bf16: CUDA call failed"):
+        # 6 channels: TMA strides must be 16 bytes, so the entry point refuses (the wrapper pads)
+        _build.call("gblock_conv1_bf16", *[ptr(x)] * 2, *[ptr(gb[4])] * 4, ptr(x),
+                    2, 8, 8, 6, stream)
+    with pytest.raises(RuntimeError, match="gru_rollout_bf16: CUDA call failed"):
+        # a pointer off the 16-byte alignment TMA needs
+        h = bf[1].flatten()[1:]
+        _build.call("gru_rollout_bf16", ptr(bf[0]), ptr(h), *[ptr(bf[2])] * 4,
+                    *[ptr(gb[4])] * 3, 1, 8, 8, 8, 2, 2, stream)
 
 
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32)
@@ -254,11 +285,12 @@ def bf16_rel_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
 
 
-# Ragged channel counts (masked scalar loads), multiples of 8 (16-byte bf16
-# copies) and the main path's 8x8 / C=384 level, in bf16; the same bits twice.
+# Ragged channel counts (the wrappers pad them to multiples of 8 for TMA),
+# multiples of 8, the main path's levels at B=2 / N=36 and at the tile batch
+# (B=16 / N=288), in bf16; the same bits twice.
 @pytest.mark.parametrize(
     "t_in,b,hw,c", [(3, 2, 5, 6), (1, 2, 8, 70), (3, 3, 9, 40), (3, 2, 12, 48), (1, 2, 8, 384),
-                    (3, 16, 64, 48)],
+                    (3, 16, 64, 48), (1, 16, 8, 384), (3, 16, 16, 192)],
 )
 def test_convgru_rollout_bf16_kernel_matches_plain(dev, t_in, b, hw, c):
     args = [a.bfloat16() for a in gru_inputs(np.random.default_rng(7), t_in, b, hw, c, dev)]
@@ -275,7 +307,7 @@ def test_convgru_rollout_bf16_kernel_matches_plain(dev, t_in, b, hw, c):
 @pytest.mark.parametrize(
     "n,h,w,cin,cout",
     [(2, 7, 5, 6, 6), (3, 8, 9, 20, 12), (2, 6, 6, 70, 70), (4, 8, 8, 128, 128), (4, 9, 7, 96, 64),
-     (36, 64, 64, 96, 96), (36, 16, 16, 384, 192)],
+     (36, 64, 64, 96, 96), (36, 16, 16, 384, 192), (36, 8, 8, 768, 768), (288, 32, 32, 192, 192)],
 )
 def test_gblock_fused_bf16_kernel_matches_plain(dev, n, h, w, cin, cout):
     args = gblock_inputs(np.random.default_rng(8), n, h, w, cin, cout, dev)
@@ -318,3 +350,36 @@ def test_artifact_exported_and_served_on_the_card(dev, tmp_path):
     assert (out - want).abs().max().item() <= 1e-6
     with pytest.raises(ValueError, match="'cuda'.*'cpu'"):
         serving.load_exported(path).place("cpu").generate(x, seed=5)
+
+
+def test_served_and_tiled_paths_take_card_inputs(dev, tmp_path, monkeypatch):
+    """A CUDA ``x`` or ``frames`` gives the bits of the same values from the host.
+
+    The device tiler keeps a field that is already on the card there: no
+    tensor goes through numpy on its way in, and ``frames`` stays on the card.
+    """
+    model = random_fill(DGMR(**TINY, num_samples=2).eval(), torch.Generator().manual_seed(0))
+    path = str(tmp_path / "tiny.dgmrx")
+    serving.save_exported(path, model, batch_size=2)
+    server = serving.load_exported(path).place()
+    x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+    want = server.generate(x, seed=3)
+    assert torch.equal(server.generate(x.to(dev), seed=3), want)
+    assert torch.equal(server.generate(x.to(dev).double(), seed=3), want)
+
+    frames = torch.rand((4, 1, 150, 100), generator=torch.Generator().manual_seed(2))
+    z = torch.randn((1, 8, 2, 2), generator=torch.Generator().manual_seed(4))
+    kwargs = dict(tile=64, overlap=16, batch_tiles=5, z=z)
+    on_card = frames.to(dev)
+    np.testing.assert_array_equal(tiled_nowcast(model, on_card, **kwargs),
+                                  tiled_nowcast(model, frames.numpy(), **kwargs))
+    want = tiled_nowcast_device(model, frames.numpy(), **kwargs)
+
+    def no_numpy(*args, **kwargs):
+        raise AssertionError("a tensor went through numpy")
+
+    monkeypatch.setattr(torch.Tensor, "__array__", no_numpy)
+    got = tiled_nowcast_device(model, on_card, **kwargs)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(got, want)
+    assert on_card.device == dev

@@ -5,6 +5,8 @@ runs them; tolerances are theirs (rtol/atol 1e-5). The CUDA kernels themselves
 are held against these plain versions on the card by ``tests/test_torch_cuda.py``.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +21,12 @@ from skillful_nowcasting_tpu_torch.ops import (
     convgru_rollout_reference,
     fold_gblock_variables,
     gblock_fused,
+    gblock_fused_reference,
 )
+from skillful_nowcasting_tpu_torch.ops import gru_rollout as gru_rollout_mod
 from torch_port_helpers import jax_variables, load_port, randn, t
+
+gblock_fused_mod = importlib.import_module("skillful_nowcasting_tpu_torch.ops.gblock_fused")
 
 torch.set_num_threads(1)
 
@@ -68,6 +74,37 @@ def test_gblock_fused_plain_and_fold_match_pallas(cin, cout):
     for ours, theirs in zip(args[:-1], jax_args[:-1]):
         np.testing.assert_allclose(np.array(ours.detach()), np.array(theirs), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["convgru_rollout", "gblock_fused"])
+def test_bf16_channel_padding_is_exact(kernel):
+    """The bf16 wrappers' zero padding to multiples of 8 leaves the first C channels as they were.
+
+    In float64, where the padded zeros' only effect is on the summation
+    order, the padded problem's plain version agrees with the original's.
+    """
+    rng = np.random.default_rng(9)
+    if kernel == "convgru_rollout":
+        args = [a.double() for a in map(t, gru_inputs(rng, 3, 2, 5, 6))]
+        padded = gru_rollout_mod.pad_channels(*args)
+        assert padded[-1] == 8 and padded[0].shape == (3, 2, 5, 5, 24)
+        want = convgru_rollout_reference(*args, n_steps=3)
+        got = convgru_rollout_reference(*padded[:-1], n_steps=3)
+        assert got[..., 6:].abs().max().item() == 0.0
+    else:
+        x = randn(rng, 3, 7, 5, 6)
+        k = [randn(rng, 3, 3, 6, 6, scale=0.2), randn(rng, 3, 3, 6, 12, scale=0.2),
+             randn(rng, 1, 1, 6, 12, scale=0.4)]
+        aff = [1.0 + randn(rng, 6, scale=0.1), randn(rng, 6, scale=0.1),
+               1.0 + randn(rng, 6, scale=0.1), randn(rng, 6, scale=0.1), randn(rng, 12, scale=0.1)]
+        args = [t(a).double() for a in (x, *k, *aff)]
+        padded = gblock_fused_mod.pad_channels(*args)
+        assert padded[0].shape == (3, 7, 5, 8) and padded[2].shape == (3, 3, 8, 16)
+        want = gblock_fused_reference(*args, True)
+        got = gblock_fused_reference(*padded, True)
+        assert got[..., 12:].abs().max().item() == 0.0
+    np.testing.assert_allclose(np.array(got[..., :want.shape[-1]]), np.array(want),
+                               rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("fn,n_args", [(convgru_rollout, 5), (gblock_fused, 9)])

@@ -160,6 +160,7 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.hub.lightning\n"
         "import skillful_nowcasting_tpu_torch.hub.safetensors\n"
         "import skillful_nowcasting_tpu_torch.serving\n"
+        "import skillful_nowcasting_tpu_torch.ops.tma\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"

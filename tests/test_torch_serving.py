@@ -132,6 +132,16 @@ def test_export_microbatch_and_weight_update(reference, artifact, loaded):
     assert (server.generate(x, seed=1) - out).abs().max().item() > 0
 
 
+@pytest.mark.parametrize("form", ["bfloat16 tensor", "float32 tensor"])
+def test_generate_takes_tensors(reference, loaded, form):
+    """A tensor ``x`` of any float dtype gives the bits of the equal float32 numpy ``x``."""
+    server = fresh(loaded)
+    x = torch.from_numpy(reference["x"]).bfloat16()  # values a bf16 batch can hold exactly
+    want = server.generate(x.float().numpy(), seed=SEED)
+    got = server.generate(x if form == "bfloat16 tensor" else x.float(), seed=SEED)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 def test_weight_count_is_checked(artifact, tmp_path):
     """Weights are indexed by position; a count that differs from the names raises."""
     path, _ = artifact

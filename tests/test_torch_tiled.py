@@ -77,6 +77,17 @@ def test_tiler_matches_jax_on_a_ragged_field(models, field, tiler):
     np.testing.assert_allclose(to_nhwc(got), np.asarray(want), rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("tiler", ["tiled_nowcast", "tiled_nowcast_device"])
+def test_tilers_take_tensor_frames(models, field, tiler):
+    """A torch ``frames`` (float32 or float64) gives the bits of the numpy field."""
+    _, _, port = models
+    frames, z = field
+    kwargs = dict(TILING, z=t(to_nchw(z)))
+    want = getattr(inference, tiler)(port, frames, **kwargs)
+    for form in (torch.from_numpy(frames), torch.from_numpy(frames).double()):
+        np.testing.assert_array_equal(getattr(inference, tiler)(port, form, **kwargs), want)
+
+
 def test_device_tiler_stripes_are_bit_identical(models, field):
     """Stripes change when copies start, never the tile batches: 12 tiles as 5, 5 and 2."""
     _, _, port = models
