@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16 and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training and retraining paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
+train step (``profiling.trace``: the card's busy share, the kernel launches,
+the top kernels by device time) and prints no result line.
 
 1. Device: needs CUDA; prints the card's name and power limit; TF32 off.
 2. Build: compiles the hand-written kernels from ``skillful_nowcasting_tpu_torch/csrc``
@@ -36,14 +39,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    every used SN vector advanced, no kernel launch in a train step (train
    mode takes the plain paths, as in JAX), and exactly 4 / 8 launches per
    generator forward in the eval step. Prints seconds per step, a
-   synchronized D / G / logging split of the last step and peak memory, then
+   synchronized D / G / logging split of steps 2-3 and peak memory; R1's cost
+   on an f32 step (two ``r1_gamma=10`` steps on the same state: their D
+   phases against steps 2-3's, ``d_r1`` finite and > 0); then
    the time and peak memory of one more step without the rollout recompute.
 8. Training parity, card vs CPU, at the CPU tests' tiny config: the same
    weights, the same explicit draws, SGD, one train step each. Losses,
    gradients and post-step parameters agree to max-abs <= 1e-3 of each
    tensor's max-abs (floored at 1e-6 of its group's largest: a conv bias in
-   front of a train-mode BatchNorm has a true gradient of 0) in float64;
-   the float32 figure is printed beside it.
+   front of a train-mode BatchNorm has a true gradient of 0) in float64,
+   without and with the R1 penalty (``r1_gamma=10``); the float32 figure is
+   printed beside it.
 9. Hub round trips at full width: ``save_pretrained`` then
    ``DGMR.from_pretrained`` onto the card; the same weights with old-style
    spectral-norm keys and ``generator.*`` copies; the three stacks saved
@@ -52,11 +58,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 10. A 1184x1184 field through both tilers (tile 256, overlap 64, 16 tiles a
    forward), one latent: 4 / 8 launches per forward, an interior tile of
    each against a direct forward and the tile the two tilers share against
-   each other (<= 1e-4), ``fetch_stripes=3`` bit-identical to 1, the seam
-   ratio printed.
+   each other (<= 1e-4), ``fetch_stripes=3`` and the field handed over on the
+   card bit-identical to the host field, the seam ratio printed.
 11. One MRMS CONUS field, 3500x7000, 18 steps, through
-   ``tiled_nowcast_device``: seconds, tiles/s, peak memory; the same field
-   handed over on the card gives the same bits.
+   ``tiled_nowcast_device``: seconds, tiles/s, peak memory. (The same field
+   handed over on the card, which gives the same bits, is checked on phase
+   10's 1184^2 field rather than this one, to save 18 s of the run.)
 12. ``evaluate_nowcast`` at full width, S=6, B=2, 2 batches: finite metrics.
 13. ``tiled_nowcast_device`` and ``evaluate_nowcast`` at the tiny config on
    the card and on the CPU, fixed latents: max-abs <= 1e-3.
@@ -73,6 +80,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    f32 on fixed latents below 0.15 of scale; one MRMS 3500x7000 field through
    ``tiled_nowcast_device(dtype=torch.bfloat16)``; a synchronized bf16 layer
    breakdown.
+16. The retraining path at full width (paper config, seeded weights,
+   desaturated D, B=2 synthetic radar rendered on the card): 3 bf16 train
+   steps (seconds, the D / G / logging split of steps 2-3, peak memory,
+   carried state all f32); R1's cost on a bf16 step as phase 7 measures it
+   on f32; the overhead of ``watch_gradients`` + ``watch_histograms`` on a
+   bf16 step, after the G update where they run, against steps 2-3
+   (histogram counts sum to the parameter count); each cost counts as
+   resolved only where its times lie above every time without it; then
+   ``Trainer.fit`` (bf16, R1, ``ckpt_every=2``,
+   ``val_every=2``, ``val_skill``, ``log_every=1``, ``prefetch=2``) on
+   ``synthetic_radar_batches_device``, sent SIGTERM by its train iterator
+   after step 3: ``latest/`` holds step 3, the checkpoint restores
+   bit-identical (bytes, save and restore seconds printed), and a new
+   Trainer resumes it to step 4. The train steps launch no kernel; each
+   validation launches 4 / 8 bf16 kernels per generator forward and no f32
+   kernel.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -85,8 +108,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 KERNEL_TOL = 1e-4
@@ -100,6 +128,7 @@ TILE_BATCH = 16  # tiles per forward of tiled_nowcast_device (its default)
 TILED_FIELD = 1184  # = 256 + 5 * 192 - 32: the host tiler's flush-right tile is a device tile
 MRMS = (3500, 7000)  # MRMS CONUS grid
 TRAIN_STEPS = 3
+R1_GAMMA = 10.0
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
             generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
 # Published H100 SXM peaks (dense). 3xTF32 does three TF32 products per f32 product.
@@ -306,10 +335,11 @@ def layer_times(torch, model, x, card: str, tag: str = "") -> None:
     print(f"layer{tag} wall: {1e3 * wall:.3f} ms ({x.dtype}) on {card}")
 
 
-def phase_split(torch, training, run_step) -> dict:
+def split_step(torch, training, step, state, x, y, draw) -> dict:
     """Run one train step with a synchronize after each optimizer update; seconds per phase.
 
-    The step applies D, D, then G updates; the logging forward follows.
+    The step applies D, D, then G updates; the logging forward (and the watch
+    flags' histograms and norms) follows. Returns the seconds and the metrics.
     """
     marks = []
     apply = training._apply
@@ -323,13 +353,39 @@ def phase_split(torch, training, run_step) -> dict:
     t0 = time.perf_counter()
     training._apply = timed_apply
     try:
-        run_step()
+        metrics = step(state, x, y, draw)
         torch.cuda.synchronize()
     finally:
         training._apply = apply
     end = time.perf_counter()
     return {"d_phase": marks[1] - t0, "g_phase": marks[2] - marks[1],
-            "logging_forward": end - marks[2], "step": end - t0}
+            "logging_forward": end - marks[2], "step": end - t0, "metrics": metrics}
+
+
+def r1_cost(torch, training, model, state, x, y, dtype, plain: list, card: str) -> None:
+    """R1's cost on a step: the D phases of 2 split R1 steps against those of ``plain`` splits.
+
+    R1 adds work to the D phase only, so the D phases are compared. The cost
+    counts as resolved only where the two sets of D phases do not overlap.
+    """
+    name = "f32" if dtype is None else "bf16"
+    step_r1 = training.make_train_step(model, compute_dtype=dtype, r1_gamma=R1_GAMMA)
+    runs = [split_step(torch, training, step_r1, state, x, y, torch.Generator().manual_seed(seed))
+            for seed in (510, 511)]
+    for run in runs:
+        metrics = run["metrics"]
+        d_r1 = metrics["train/d_r1"].item()
+        if not (math.isfinite(d_r1) and d_r1 > 0) or not all(
+                math.isfinite(v.item()) for v in metrics.values()):
+            fail(f"{name} R1 step: d_r1 {d_r1}, metrics {metrics}")
+    d_with = [r["d_phase"] for r in runs]
+    d_plain = [r["d_phase"] for r in plain]
+    cost = sum(d_with) / len(d_with) - sum(d_plain) / len(d_plain)
+    verdict = "resolved" if min(d_with) > max(d_plain) else "unresolved: the D phases overlap"
+    print(f"retrain R1 {name} (r1_gamma={R1_GAMMA}): D phase {[round(d, 4) for d in d_with]} s "
+          f"with, {[round(d, 4) for d in d_plain]} s without; R1 costs {cost:.4f} s a step "
+          f"({verdict}); whole steps {[round(r['step'], 4) for r in runs]} s with, "
+          f"{[round(r['step'], 4) for r in plain]} s without; d_r1 {d_r1:.6e}; on {card}")
 
 
 def unused_shortcuts(model) -> set:
@@ -366,15 +422,13 @@ def train_full_width(torch, dev, card, launch_counters) -> dict:
     for counter in launch_counters:
         counter.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    seconds, split = [], None
+    seconds, splits = [], []
     for i in range(TRAIN_STEPS):
         draw = torch.Generator().manual_seed(200 + i)
-        if i == TRAIN_STEPS - 1:
-            holder = {}
-            split = phase_split(torch, training,
-                                lambda: holder.update(m=step(state, x, y, draw)))
-            metrics = holder["m"]
-            seconds.append(split["step"])
+        if i:  # every step after the warm-up, split into its phases
+            splits.append(split_step(torch, training, step, state, x, y, draw))
+            metrics = splits[-1]["metrics"]
+            seconds.append(splits[-1]["step"])
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -385,9 +439,13 @@ def train_full_width(torch, dev, card, launch_counters) -> dict:
         print(f"train step {i + 1}: {json.dumps(values)}")
         if not all(math.isfinite(v) for v in values.values()):
             fail(f"train step {i + 1}: non-finite metrics {values}")
+    split = splits[-1]
     peak = torch.cuda.max_memory_allocated()
+    # R1's cost on an f32 step, on the same state (phase 16 does the same for bf16).
+    r1_cost(torch, training, model, state, x, y, None, splits, card)
     train_launches = {c.__name__: c.launches for c in launch_counters}
-    print(f"train launches over {TRAIN_STEPS} steps: {train_launches} (expected 0 each)")
+    print(f"train launches over {TRAIN_STEPS} steps and 2 R1 steps: {train_launches} "
+          f"(expected 0 each)")
     if any(train_launches.values()):
         fail(f"a train step launched a kernel: {train_launches}")
 
@@ -461,14 +519,14 @@ def train_parity(torch, dev) -> None:
     y = torch.rand((2, 2, 1, 64, 64), generator=gen)
     draws = training.draw_step(base, 6, torch.Generator().manual_seed(22))
 
-    def one_step(device, dtype):
+    def one_step(device, dtype, r1_gamma=0.0):
         model = DGMR(**TINY, device=device)
         model.load_state_dict(base.state_dict())
         model.to(dtype)
         g, d = training.split_params(model)
         state = training.init_train_state(
             model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
-        m = training.make_train_step(model, return_grads=True)(
+        m = training.make_train_step(model, return_grads=True, r1_gamma=r1_gamma)(
             state, x.to(dtype), y.to(dtype), draws=draws)
         cpu = lambda v: v.detach().to("cpu", torch.float64)  # noqa: E731
         return {
@@ -493,11 +551,259 @@ def train_parity(torch, dev) -> None:
               f"{worst_all[0]:.3e} of the tensor's max-abs at {worst_all[2]} {worst_all[1]}")
         if dtype == torch.float64 and not worst_all[0] <= TRAIN_TOL:
             fail(f"card and CPU train steps differ by {worst_all[0]} > {TRAIN_TOL}")
+    # The R1 penalty (a D forward and a double backward per D update), float64.
+    card, cpu = one_step(dev, torch.float64, R1_GAMMA), one_step("cpu", torch.float64, R1_GAMMA)
+    worst_all = max((worst(card[g], cpu[g]) + (g,)) for g in card)
+    print(f"train parity r1_gamma={R1_GAMMA} float64 (card vs CPU, one tiny SGD step): d_r1 "
+          f"{cpu['losses']['train/d_r1'].item():.6e}, worst {worst_all[0]:.3e} of the tensor's "
+          f"max-abs at {worst_all[2]} {worst_all[1]}")
+    if not worst_all[0] <= TRAIN_TOL:
+        fail(f"card and CPU R1 train steps differ by {worst_all[0]} > {TRAIN_TOL}")
     # What f32 rounding alone does to one step: the CPU's f32 step against its f64 one.
     f32, f64 = cpu_steps[torch.float32], cpu_steps[torch.float64]
     for group in f64:
         top = worst(f32[group], f64[group])
         print(f"train rounding (CPU float32 vs float64), {group}: worst {top[0]:.3e} at {top[1]}")
+
+
+def carried_state_is_f32(torch, state) -> bool:
+    """Parameters, BN/SN buffers and the Adam moments of a train state are all float32."""
+    moments = [v for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
+               for v in st.values() if v.ndim]
+    tensors = [*state.model.parameters(), *moments,
+               *(b for k, b in state.model.named_buffers() if not k.endswith("num_batches_tracked"))]
+    return all(t.dtype == torch.float32 for t in tensors)
+
+
+def timed_step(torch, step, state, x, y, seed) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(state, x, y, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def profile_step(torch, card) -> None:
+    """``--profile-step``: one full-width bf16 train step under ``profiling.trace``, after a warm-up.
+
+    Prints the step's wall, the card's busy time in it (the sum of its
+    kernels' device time), the kernel launches and the top kernels by device
+    time. The profile's processing takes minutes, so the default run skips it.
+    """
+    from torch.autograd import DeviceType
+
+    from skillful_nowcasting_tpu_torch import DGMR, profiling, training
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    model = training.desaturate_discriminator(
+        random_fill(DGMR(), torch.Generator().manual_seed(30)))
+    x, y = next(synthetic_radar_batches_device(batch_size=2, seed=31))
+    state = training.init_train_state(model)
+    step = training.make_train_step(model, compute_dtype=torch.bfloat16)
+    for seed in (500, 501):  # warm-up
+        timed_step(torch, step, state, x, y, seed)
+    root = tempfile.mkdtemp(prefix="dgmr_trace_")
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(root) as prof:
+            sec, _ = timed_step(torch, step, state, x, y, 505)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        self_ms = lambda e: getattr(e, "self_device_time_total", 0) / 1e3  # noqa: E731
+        busy = sum(self_ms(e) for e in kernels)
+        kernels.sort(key=self_ms, reverse=True)
+        top = "; ".join(f"{e.key[:60]} x{e.count} {self_ms(e):.1f} ms" for e in kernels[:6])
+        if busy <= 0:
+            fail("the profiler saw no device time in a train step")
+        launches = sum(e.count for e in kernels)
+        wall = 1e3 * sec
+        print(f"retrain bf16 profile (one step under profiling.trace): device busy {busy:.1f} ms "
+              f"of {wall:.1f} ms wall ({100 * (1 - busy / wall):.1f}% idle; the whole profile "
+              f"with its trace {time.perf_counter() - t0:.1f} s); {launches} kernel launches of "
+              f"{len(kernels)} kinds; top device time: {top}; on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def retrain_full_width(torch, dev, card, counters) -> dict:
+    """Phase 16: the retraining path at full width (paper config, seeded weights, B=2)."""
+    from skillful_nowcasting_tpu_torch import DGMR, checkpoint, training
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.trainer import Trainer
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    bf16 = torch.bfloat16
+
+    def fresh_model(seed):
+        return training.desaturate_discriminator(
+            random_fill(DGMR(), torch.Generator().manual_seed(seed)))
+
+    model = fresh_model(30)
+    x, y = next(synthetic_radar_batches_device(batch_size=2, seed=31))
+    state = training.init_train_state(model)
+    for counter in counters:
+        counter.launches = 0
+
+    # bf16 train steps: seconds, the D / G / logging split of each after the warm-up, peak memory.
+    step_bf16 = training.make_train_step(model, compute_dtype=bf16)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, splits = [], []
+    for i in range(TRAIN_STEPS):
+        draw = torch.Generator().manual_seed(500 + i)
+        if i:
+            splits.append(split_step(torch, training, step_bf16, state, x, y, draw))
+            metrics = splits[-1]["metrics"]
+            seconds.append(splits[-1]["step"])
+        else:
+            sec, metrics = timed_step(torch, step_bf16, state, x, y, 500)
+            seconds.append(sec)
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: v.item() for k, v in metrics.items()}
+    print(f"retrain bf16 step {TRAIN_STEPS}: {json.dumps(values)}")
+    if not all(math.isfinite(v) for v in values.values()) or any(
+            v.dtype != torch.float32 for v in metrics.values()):
+        fail(f"bf16 train step: metrics not f32 and finite: {metrics}")
+    if not carried_state_is_f32(torch, state):
+        fail("bf16 train steps: the carried state is not all float32")
+    phases = {k: [round(sp[k], 4) for sp in splits] for k in ("d_phase", "g_phase",
+                                                              "logging_forward")}
+    print(f"retrain bf16: seconds per step {[round(s, 4) for s in seconds]} (step 1 is the "
+          f"warm-up); split of steps 2-{TRAIN_STEPS} (synchronized): D phase {phases['d_phase']} s, "
+          f"G phase {phases['g_phase']} s, logging forward {phases['logging_forward']} s; "
+          f"peak device memory {peak / 2**30:.3f} GiB; carried state float32; on {card}")
+
+    # R1's cost on a bf16 step (phase 7 measures it on an f32 step).
+    r1_cost(torch, training, model, state, x, y, bf16, splits, card)
+
+    # The watch flags' overhead on a bf16 step; the histograms count every parameter.
+    step_watch = training.make_train_step(model, compute_dtype=bf16, watch_gradients=True,
+                                          watch_histograms=True)
+    watch = split_step(torch, training, step_watch, state, x, y,
+                       torch.Generator().manual_seed(530))
+    metrics = watch["metrics"]
+    hists = metrics.pop("train/hist")
+    total = sum(p.numel() for p in model.parameters())
+    counted = {group: sum(int(h["counts"].sum()) for k, h in hists.items() if k.startswith(group))
+               for group in ("train/hist/params/", "train/hist/grads/")}
+    norms = sum(k.startswith("train/grad_norm/") for k in metrics)
+    # The norms and histograms are computed after the G update, with the logging forward.
+    tail = [sp["logging_forward"] for sp in splits]
+    extra = watch["logging_forward"] - sum(tail) / len(tail)
+    verdict = "resolved" if watch["logging_forward"] > max(tail) else "unresolved: within those"
+    print(f"retrain watch (bf16, watch_gradients + watch_histograms, first call): after the G "
+          f"update {watch['logging_forward']:.4f} s against {[round(t, 4) for t in tail]} s "
+          f"without, overhead {extra:.4f} s ({verdict}); whole step {watch['step']:.4f} s; "
+          f"{norms} grad norms, {len(hists)} histograms, counts {counted} of {total} "
+          f"parameters; on {card}")
+    if set(counted.values()) != {total} or not norms:
+        fail(f"watch step: histogram counts {counted} != {total} parameters, or no grad norm")
+    train_launches = launch_counts(counters)
+    print(f"retrain train steps: launches {train_launches} (expected 0 each)")
+    if any(train_launches.values()):
+        fail(f"a train step launched a kernel: {train_launches}")
+    del model, state, step_bf16, step_watch, splits, watch, metrics, hists
+    torch.cuda.empty_cache()
+
+    # Trainer.fit, killed by SIGTERM after step 3, resumed by a new Trainer to step 4.
+    root = tempfile.mkdtemp(prefix="dgmr_retrain_")
+    try:
+        def make_trainer(mdl, max_steps):
+            return Trainer(
+                mdl, max_steps=max_steps, ckpt_dir=f"{root}/ckpt", log_dir=f"{root}/log",
+                compute_dtype=bf16, r1_gamma=R1_GAMMA, ckpt_every=2,
+                val_every=2, val_skill=True, log_every=1, prefetch=2, seed=40)
+
+        trainer = make_trainer(fresh_model(41), 10)
+        step3 = threading.Event()
+        log_scalars = trainer.logger.log_scalars
+
+        def log(scalars, step):
+            log_scalars(scalars, step)
+            if step == 3 and "train/g_loss" in scalars:
+                step3.set()
+
+        trainer.logger.log_scalars = log
+        saves = []
+        save = trainer._save
+
+        def timed_save(*args):
+            t0 = time.perf_counter()
+            save(*args)
+            saves.append(time.perf_counter() - t0)
+
+        trainer._save = timed_save
+
+        def killed_after_step_3():
+            for i, batch in enumerate(synthetic_radar_batches_device(batch_size=2, seed=42)):
+                if i == 4:  # step 4's batch (batch 0 is drawn before the loop)
+                    if not step3.wait(timeout=900):
+                        raise RuntimeError("step 3 was never logged")
+                    if signal.getsignal(signal.SIGTERM) != trainer._sigterm:
+                        raise RuntimeError("the Trainer's SIGTERM handler is not installed")
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield batch
+
+        for counter in counters:
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        killed = trainer.fit(killed_after_step_3(),
+                             synthetic_radar_batches_device(batch_size=2, seed=43))
+        fit_s = time.perf_counter() - t0
+        fit_peak = torch.cuda.max_memory_allocated()
+        trainer_launches = launch_counts(counters)
+        forwards = 2 + killed.model.generation_steps + killed.model.num_samples
+        expected = expected_launches(forwards, bf16=True)
+        print(f"retrain Trainer.fit (bf16, r1_gamma={R1_GAMMA}, prefetch 2, val_skill): "
+              f"stopped by SIGTERM at step {killed.step} in {fit_s:.4f} s, peak device memory "
+              f"{fit_peak / 2**30:.3f} GiB; validation at step 2: {forwards} generator forwards, "
+              f"launches {trainer_launches}, expected {expected}; on {card}")
+        if trainer_launches != expected:
+            fail(f"the Trainer's validation launches {trainer_launches} differ from {expected}")
+        latest = checkpoint.make_manager(f"{root}/ckpt/latest")
+        if killed.step != 3 or latest.latest_step() != 3 or latest.all_steps() != [2, 3]:
+            fail(f"SIGTERM after step 3: state.step {killed.step}, latest/ {latest.all_steps()}")
+        nbytes = os.path.getsize(os.path.join(latest.directory, "3", checkpoint.STATE_FILE))
+        params = sum(p.numel() * 4 for p in killed.model.parameters())
+
+        resumed_model = fresh_model(44)
+        probe = training.init_train_state(resumed_model)
+        t0 = time.perf_counter()
+        checkpoint.restore_state(latest, probe, torch.Generator())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(killed.model.state_dict().values(),
+                                                    resumed_model.state_dict().values()))
+        for opt_a, opt_b in ((killed.g_opt, probe.g_opt), (killed.d_opt, probe.d_opt)):
+            for st_a, st_b in zip(opt_a.state_dict()["state"].values(),
+                                  opt_b.state_dict()["state"].values()):
+                same &= all(torch.equal(st_a[k], st_b[k]) for k in st_a)
+        print(f"retrain checkpoint: {nbytes} bytes a step ({nbytes / params:.3f} x the f32 "
+              f"parameter bytes {params}); saves (latest/ + best/) {[round(s, 4) for s in saves]} "
+              f"s; restore {restore_s:.4f} s; restored state bit-identical: {same}; on {card}")
+        if not same or probe.step != 3:
+            fail("the restored state differs from the state saved at SIGTERM")
+        del killed, probe, trainer
+        torch.cuda.empty_cache()
+
+        for counter in counters:
+            counter.launches = 0
+        resumed = make_trainer(resumed_model, 4)
+        t0 = time.perf_counter()
+        state = resumed.fit(synthetic_radar_batches_device(batch_size=2, seed=45),
+                            synthetic_radar_batches_device(batch_size=2, seed=46))
+        resumed_launches = launch_counts(counters)
+        print(f"retrain resumed: a new Trainer took the run from step 3 to {state.step} in "
+              f"{time.perf_counter() - t0:.4f} s; latest/ {latest.all_steps()}; validation "
+              f"launches {resumed_launches}")
+        if state.step != 4 or latest.latest_step() != 4 or resumed_launches != expected:
+            fail(f"resume: step {state.step}, latest/ {latest.all_steps()}, launches "
+                 f"{resumed_launches} (expected {expected})")
+        if not carried_state_is_f32(torch, state):
+            fail("resumed bf16 run: the carried state is not all float32")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"trainer_validation_bf16": trainer_launches}
 
 
 def device_tiles(h: int, w: int, tile: int = 256, overlap: int = 64) -> int:
@@ -662,6 +968,11 @@ def tiled_field(torch, dev, model, card, counters) -> dict:
     if not np.array_equal(striped, out["tiled_nowcast_device"]):
         fail("tiled_nowcast_device: fetch_stripes=3 differs from fetch_stripes=1")
     print("tiled_nowcast_device: fetch_stripes=3 is bit-identical to 1")
+    resident = tiled_nowcast_device(model, torch.from_numpy(frames).to(dev), tile=tile,
+                                    overlap=overlap, batch_tiles=TILE_BATCH, z=z)
+    if not np.array_equal(resident, out["tiled_nowcast_device"]):
+        fail("tiled_nowcast_device: a card-resident field gives other bits than the host field")
+    print("tiled_nowcast_device: the field handed over on the card is bit-identical to the host's")
 
     def direct(y0, x0):
         with torch.inference_mode():
@@ -716,16 +1027,6 @@ def mrms_field(torch, model, card, counters) -> dict:
         fail(f"MRMS field: output {out.shape}, finite {np.isfinite(out).all()}")
     print(f"MRMS {h}x{w}, 18 steps: {seconds:.4f} s, {n_tiles / seconds:.2f} tiles/s, "
           f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated) on {card}")
-    field = torch.from_numpy(frames).to(next(model.parameters()).device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = tiled_nowcast_device(model, field, z=z)
-    seconds = time.perf_counter() - t0
-    same = bool(np.array_equal(again, out))
-    print(f"MRMS {h}x{w} from a field already on the card: {seconds:.4f} s, "
-          f"bit-identical to the host field: {same}")
-    if not same:
-        fail("tiled_nowcast_device: a card-resident field gives other bits than the host field")
     return {"mrms_field": launches}
 
 
@@ -965,8 +1266,26 @@ def bf16_full_width(torch, dev, model, card, counters):
     return launches, {"mrms_field_bf16": mrms}
 
 
+_T0 = time.perf_counter()
+_LAST = [_T0]
+
+
+def stamp(phases: str) -> None:
+    """Print the seconds the phases just finished took, and the script's total so far."""
+    now = time.perf_counter()
+    print(f"time: phases {phases} {now - _LAST[0]:.1f} s, {now - _T0:.1f} s since start")
+    _LAST[0] = now
+
+
 def main() -> None:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile-step", action="store_true",
+                        help="only profile one full-width bf16 train step (no checks, no result)")
+    args = parser.parse_args()
 
     # 1. Device.
     if not torch.cuda.is_available():
@@ -994,6 +1313,9 @@ def main() -> None:
         from skillful_nowcasting_tpu_torch.utils import random_fill
     except ImportError as e:
         fail(f"the port is not importable (run from the repository root): {e}")
+    if args.profile_step:
+        profile_step(torch, card)
+        return
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -1015,6 +1337,7 @@ def main() -> None:
     if not any(label.split("<")[0] in BF16_KERNELS for label in spilled):
         fail("no bf16 kernel in ptxas's report")
 
+    stamp("1-2")
     # 3. Kernels vs plain versions, at the main path's shapes, in f32 and in bf16.
     gen = torch.Generator().manual_seed(0)
 
@@ -1111,6 +1434,7 @@ def main() -> None:
                 del args
     torch.cuda.empty_cache()
 
+    stamp("3")
     # 4. The slice at full width through make_generate, from a CPU batch.
     batch = 2
     model = serving_model(torch, dev)
@@ -1168,10 +1492,12 @@ def main() -> None:
     del model, cpu_model, generate
     torch.cuda.empty_cache()
 
+    stamp("4-6")
     # 7. Training at full width; 8. training parity, card vs CPU.
     by_path = train_full_width(torch, dev, card, counters)
     train_parity(torch, dev)
 
+    stamp("7-8")
     # 9-12. The serving user's paths at full width; 13. their parity, card vs CPU.
     model = serving_model(torch, dev)
     by_path.update(hub_round_trips(torch, dev, model, card, counters))
@@ -1181,6 +1507,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     serving_parity_tiny(torch, dev)
 
+    stamp("9-13")
     # 14. The serving artifact at full width; 15. the bf16 serving config at full width.
     by_path.update(artifact_full_width(torch, dev, model, card, counters))
     bf16_launches, more = bf16_full_width(torch, dev, model, card, counters)
@@ -1188,6 +1515,11 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
+    stamp("14-15")
+    # 16. The retraining path at full width: bf16 steps, R1, watch, Trainer killed and resumed.
+    by_path.update(retrain_full_width(torch, dev, card, counters))
+
+    stamp("16")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

@@ -17,6 +17,10 @@ and train-mode BatchNorm / spectral norm). Both TPU kernels of the eval path
 have hand-written CUDA counterparts for Hopper in ``csrc/``, built on first
 use; CPU tensors take their plain PyTorch versions, CUDA tensors the kernels.
 Train mode runs plain PyTorch, as the JAX package trains without its kernels.
+The retraining path (``Trainer``, ``checkpoint``, ``logging_utils``,
+``profiling``, ``data`` and the CLI ``python -m skillful_nowcasting_tpu_torch.run``)
+fits, checkpoints and resumes a run, with R1, bf16 mixed precision and
+per-layer gradient watch in the step.
 The serving artifact (``serving.export_nowcast`` / ``save_exported`` /
 ``load_exported``) is a ``torch.export`` program in which both kernels are
 custom ops. Compute follows the input's dtype: bfloat16 inputs run the
@@ -34,6 +38,9 @@ _LAZY = {
     "LatentConditioningStack": ".models.common",
     "Generator": ".models.generators",
     "Sampler": ".models.generators",
+    "Trainer": ".trainer",
+    "MetricsLogger": ".logging_utils",
+    "CheckpointManager": ".checkpoint",
 }
 
 __all__ = sorted(_LAZY)

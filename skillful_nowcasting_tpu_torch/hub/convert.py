@@ -98,6 +98,34 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def param_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter's path in the JAX param tree: the inverse of the ``params`` keys above.
+
+    ``X.parametrizations.weight.original`` and a conv's or linear layer's
+    ``X.weight`` are ``X/kernel``, a BatchNorm's ``X.weight`` is ``X/scale``;
+    ``bias`` and ``gamma`` keep their names. A ``ModuleList`` entry is one
+    JAX module named ``list.i`` (``intermediate_dblocks.0``).
+    """
+    sn_tail = ".parametrizations.weight.original"
+    out = {}
+    for name, _ in model.named_parameters():
+        if name.endswith(sn_tail):
+            mod, leaf = name[: -len(sn_tail)], "kernel"
+        else:
+            mod, _, leaf = name.rpartition(".")
+            if leaf == "weight":
+                bn = isinstance(model.get_submodule(mod), nn.modules.batchnorm._BatchNorm)
+                leaf = "scale" if bn else "kernel"
+        path = []
+        for part in mod.split(".") if mod else ():
+            if part.isdigit():
+                path[-1] = f"{path[-1]}.{part}"
+            else:
+                path.append(part)
+        out[name] = (*path, leaf)
+    return out
+
+
 def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> int:
     """Load a JAX variable tree into ``model`` with ``strict=True``.
 

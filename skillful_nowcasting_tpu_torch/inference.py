@@ -102,6 +102,7 @@ def make_skill_metrics(
     thresholds=(1.0, 4.0, 8.0),
     pools=(1, 4, 16),
     return_counts: bool = False,
+    dtype: Optional[torch.dtype] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Per-batch skill: ``batch_metrics(images, future, generator) -> {name: 0-d tensor}``.
 
@@ -111,17 +112,19 @@ def make_skill_metrics(
     CSI of the ensemble mean at each threshold (``csi_{t}``) and the
     ensemble-mean MSE (``mse``). ``return_counts=True`` adds the contingency
     counts ``csi_counts`` ``(n_thresholds, 3)``, which a dataset-level CSI
-    pools (:func:`evaluate_nowcast`). Batches are ``(B, T, C, H, W)``, run in
-    float32.
+    pools (:func:`evaluate_nowcast`). Batches are ``(B, T, C, H, W)``; the
+    forwards run in ``dtype`` (``None``: float32; ``torch.bfloat16`` runs the
+    kernels' bf16 variants), the metrics in float32.
     """
-    _eval_model(model)
+    _eval_model(model, dtype)
+    dtype = dtype or torch.float32
     generate = make_generate(model, num_samples=num_samples)
     thresholds = tuple(float(t) for t in thresholds)
     pools = tuple(int(p) for p in pools if int(p) > 1)
 
     @torch.inference_mode()
     def batch_metrics(images, future, generator: Optional[torch.Generator] = None):
-        samples = generate(torch.as_tensor(images).float(), generator)
+        samples = generate(torch.as_tensor(images).float().to(dtype), generator).float()
         future = torch.as_tensor(future).to(samples.device)
         mean = samples.float().mean(dim=0)
         out = {

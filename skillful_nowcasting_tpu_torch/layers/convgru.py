@@ -121,20 +121,24 @@ class ConvGRU(nn.Module):
         power iteration and step ``t`` divides by its own ``sigma_t``. The
         iterations do not depend on ``h``, so each conv's ``T`` sigmas are
         taken up front. The input parts run batched over all steps with the
-        raw kernels; autograd runs through the whole loop.
+        raw kernels; autograd runs through the whole loop. The convs and gates
+        run in ``x_seq``'s dtype (the power iterations stay in the
+        parameters'), as in JAX.
         """
         cell = self.cell
         xc, c = self.input_channels - self.output_channels, self.output_channels
         t = n_steps if x_static else x_seq.shape[0]
+        dtype = x_seq.dtype
         convs = (cell.read_gate_conv, cell.update_gate_conv, cell.output_conv)
-        kr, ku, kc = (conv.parametrizations.weight.original for conv in convs)
+        raw = [conv.parametrizations.weight.original for conv in convs]
         sig_r, sig_u, sig_c = (
-            conv.parametrizations.weight[0].advance(k, t) for conv, k in zip(convs, (kr, ku, kc))
+            conv.parametrizations.weight[0].advance(k, t).to(dtype) for conv, k in zip(convs, raw)
         )
-        br, bu, bc = (conv.bias.view(-1, 1, 1) for conv in convs)
+        kr, ku, kc = (k.to(dtype) for k in raw)
+        br, bu, bc = (conv.bias.to(dtype).view(-1, 1, 1) for conv in convs)
         gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)
         k_ru = torch.cat([kr[:, xc:], ku[:, xc:]])
-        h, outs = hidden_state, []
+        h, outs = hidden_state.to(dtype), []
         for step in range(t):
             g = gx if x_static else gx[step]
             gh = F.conv2d(h, k_ru, padding=1)

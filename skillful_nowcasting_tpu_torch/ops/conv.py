@@ -17,10 +17,11 @@ is divided by ``sigma_t`` before the bias is added
 (``skillful_nowcasting_tpu/ops/conv.py:121-171,205-237``). In eval mode and
 without spectral norm, ``steps`` changes nothing.
 
-Outside a spectrally normalized train forward, compute follows the input's
-dtype, as in JAX (``dtype = self.dtype or x.dtype``): the weight (spectral
-norm applied in the parameter's dtype) and the bias are cast to ``x.dtype``
-at use, so one f32 model serves f32 and bf16 inputs.
+Compute follows the input's dtype, as in JAX (``dtype = self.dtype or
+x.dtype``): the weight (spectral norm applied in the parameter's dtype) and
+the bias are cast to ``x.dtype`` at use, so one f32 model serves and trains
+on f32 and bf16 inputs. In a train forward the power iterations and sigmas
+stay in the parameter's dtype; the sigmas are cast at the division.
 """
 
 from __future__ import annotations
@@ -48,11 +49,13 @@ class _TrainSpectral:
             return self._linear(x, self.weight.to(x.dtype), bias)
         raw = self.parametrizations.weight.original
         sigmas = self.parametrizations.weight[0].advance(raw, steps or 1)
-        y = self._linear(x, raw)
+        y = self._linear(x, raw.to(x.dtype))
         y = y.unflatten(0, (sigmas.shape[0], -1))
         y = y / sigmas.to(y.dtype).view((-1,) + (1,) * (y.ndim - 1))
         y = y.flatten(0, 1)
-        return y if self.bias is None else y + self.bias.view((-1,) + (1,) * (y.ndim - 2))
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).view((-1,) + (1,) * (y.ndim - 2))
 
 
 class Conv2d(_TrainSpectral, nn.Conv2d):

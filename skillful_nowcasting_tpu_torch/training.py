@@ -22,8 +22,11 @@ other sigmas or statistics than the loss saw.
 
 The step takes its randomness from a ``torch.Generator``, or from explicit
 :class:`StepDraws` (a latent per generator forward, frame indices per
-discriminator call). Not ported yet: ``r1_gamma``, ``compute_dtype`` (bf16),
-``watch_gradients``, ``watch_histograms`` and ``axis_name``
+discriminator call). Opt-in, as in JAX: the R1 penalty on both D updates
+(``r1_gamma``), mixed precision (``compute_dtype=torch.bfloat16``: bf16
+inputs to every conv and matmul, f32 parameters, moments, gradients and
+BN/SN state), and per-layer gradient norms and histograms
+(``watch_gradients`` / ``watch_histograms``). Not ported yet: ``axis_name``
 (data parallelism).
 """
 
@@ -39,6 +42,8 @@ from torch import nn
 from torch.optim.lr_scheduler import LambdaLR
 from torch.utils.checkpoint import checkpoint
 
+from .hub.convert import param_paths
+from .logging_utils import HIST_BINS, HIST_Y_MAX
 from .losses import GridCellLoss, loss_hinge_disc, loss_hinge_gen, weight_fn
 from .models.common import draw_latents
 from .models.discriminators import draw_frames
@@ -198,10 +203,99 @@ def desaturate_discriminator(model, factor: float = 0.01):
     return model
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """Upcast-only cast for losses and sums: bf16 -> f32, f64 stays f64 (``training.py:214``)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _split_scores(scores: torch.Tensor, n_real: int):
-    """(2B, 2, 1) scores -> real spatial, real temporal, generated spatial, generated temporal."""
+    """(2B, 2, 1) scores, at >= f32 -> real spatial, real temporal, generated spatial, generated temporal."""
+    scores = _at_least_f32(scores)
     real, generated = scores[:n_real], scores[n_real:]
     return real[:, :1], real[:, 1:], generated[:, :1], generated[:, 1:]
+
+
+def _r1_penalty(model, real_seq: torch.Tensor, gen_seq: torch.Tensor, frames, n_real: int):
+    """R1 (``training.py:482-525`` in JAX): ``0.5 * mean_b ||d(sum of real scores)/dx||^2``.
+
+    The penalty scores the real half of the same real||generated concat
+    that the loss forward scored, with the same frame indices, so its
+    BatchNorm statistics are the loss's. It is differentiated at the
+    full-precision ``real_seq`` and runs at >= f32 whatever the compute
+    dtype (a bf16 double backward through D's BN/SN towers gives NaN). Its
+    forward starts from the state the loss forward left (one more power
+    iteration, so its sigmas are not the loss's) and writes nothing: the
+    discriminator's buffers are put back as that forward found them. No
+    tensor of the autograd graph aliases a buffer, so putting them back
+    leaves the double backward intact.
+    """
+    buffers = dict(model.discriminator.named_buffers())
+    kept = {k: b.clone() for k, b in buffers.items()}
+    x = real_seq.detach().requires_grad_(True)
+    try:
+        scores = model.discriminate(torch.cat([x, _at_least_f32(gen_seq)]), frame_indices=frames)
+    finally:
+        with torch.no_grad():
+            for k, b in buffers.items():
+                b.copy_(kept[k])
+    rs, rt, _, _ = _split_scores(scores, n_real)
+    (gin,) = torch.autograd.grad(rs.sum() + rt.sum(), x, create_graph=True)
+    return 0.5 * _at_least_f32(gin).square().reshape(n_real, -1).sum(dim=1).mean()
+
+
+def _layer_groups(model, names, depth: int, skip: int = 0) -> Dict[str, List[str]]:
+    """Parameter names grouped by their JAX param-tree path cut to ``depth`` levels.
+
+    ``skip`` drops that many leading levels first (1 for the discriminator's
+    own tree). Paths come from :func:`~.hub.convert.param_paths`, so the
+    keys are the JAX step's (``training.py:242-315``).
+    """
+    paths = param_paths(model)
+    groups: Dict[str, List[str]] = {}
+    for name in sorted(names, key=lambda n: paths[n]):
+        groups.setdefault("/".join(paths[name][skip : skip + depth]), []).append(name)
+    return groups
+
+
+def _layer_grad_norms(model, grads, prefix: str, skip: int = 0) -> Dict[str, torch.Tensor]:
+    """Gradient norm per layer path, two levels deep (``_layer_grad_norms`` in JAX)."""
+    return {
+        prefix + key: _global_norm({n: grads[n] for n in names})
+        for key, names in _layer_groups(model, grads, 2, skip).items()
+    }
+
+
+def _histogram(values: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Symlog histogram of ``values`` as f32: 64 integer counts, min, max, sum, sum of squares.
+
+    The bin of ``v`` is ``floor((clip(asinh(v / 1e-12) / ln 10, +-28) + 28) / 0.875)``,
+    computed with the operations of the JAX step's compiled program: each
+    division by a constant is a product with its f32 reciprocal, and asinh
+    is ``sign(x) log1p(|x| + x^2 / (sqrt(x^2 + 1) + 1))`` (``log|x| + ln 2``
+    from ``|x| >= 2^64``). So an element lands in the JAX step's bin unless
+    it sits within the last bit of XLA's and torch's f32 ``log`` / ``log1p``
+    from a bin edge. An integer bincount: a float bin would saturate at 2^24
+    (``training.py:289-296``).
+    """
+    v = torch.cat([t.detach().reshape(-1).float() for t in values])
+    f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=v.device)  # noqa: E731
+    x = v * f32(1e12)
+    a, xx = x.abs(), x * x
+    asinh = torch.where(a >= f32(2.0**64), torch.log(a) + f32(math.log(2.0)),
+                        torch.log1p(a + xx / (torch.sqrt(xx + 1.0) + 1.0)))
+    y = (torch.sign(x) * asinh * f32(1.0 / math.log(10.0))).clamp(-HIST_Y_MAX, HIST_Y_MAX)
+    idx = ((y + HIST_Y_MAX) * f32(HIST_BINS / (2.0 * HIST_Y_MAX))).to(torch.int32)
+    counts = torch.bincount(idx.clamp(0, HIST_BINS - 1), minlength=HIST_BINS)
+    return {"counts": counts.to(torch.int32), "min": v.min(), "max": v.max(),
+            "sum": v.sum(), "sumsq": (v * v).sum()}
+
+
+def _layer_histograms(model, tensors, prefix: str, depth: int = 2, skip: int = 0):
+    """One :func:`_histogram` per layer path (``_layer_histograms`` in JAX)."""
+    return {
+        prefix + key: _histogram([tensors[n] for n in names])
+        for key, names in _layer_groups(model, tensors, depth, skip).items()
+    }
 
 
 def _generator_buffers(model) -> Dict[str, torch.Tensor]:
@@ -269,18 +363,30 @@ def _mode(model, training: bool):
         model.train(was_training)
 
 
-def _batches(model, images, future_images):
+def _batches(model, images, future_images, compute_dtype):
+    """On the model's device: the model's input in ``compute_dtype``, the target at >= f32,
+    and the real sequence at >= f32 and in ``compute_dtype`` (``training.py:430-445``)."""
     dev = next(model.parameters()).device
-    images, future_images = images.to(dev), future_images.to(dev)
-    return images, future_images, torch.cat([images, future_images], dim=1)
+    images, future_images = images.to(dev), _at_least_f32(future_images.to(dev))
+    real_seq = torch.cat([_at_least_f32(images), future_images], dim=1)
+    return images.to(compute_dtype), future_images, real_seq, real_seq.to(compute_dtype)
+
+
+def _compute_dtype(model, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """``None`` means the parameters' dtype (float32, or float64 for a ``.double()`` model)."""
+    return compute_dtype or next(model.parameters()).dtype
 
 
 def make_train_step(
     model,
     *,
     logging_forward: bool = True,
+    watch_gradients: bool = False,
+    watch_histograms: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
     return_grads: bool = False,
     rollout_remat: bool = True,
+    r1_gamma: float = 0.0,
 ):
     """Build ``train_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
@@ -291,25 +397,46 @@ def make_train_step(
     gradients stacked). ``logging_forward=False`` drops the reference's unused
     extra generator forward (quirk Q8). ``rollout_remat`` recomputes each G
     rollout in the backward pass instead of keeping its activations.
+
+    ``r1_gamma > 0`` adds ``r1_gamma`` times the R1 penalty
+    (:func:`_r1_penalty`) to both D losses and reports the last one as
+    ``train/d_r1``. ``compute_dtype`` (``None``: the parameters' dtype) is
+    the dtype of every conv and matmul input; ``torch.bfloat16`` is mixed
+    precision: parameters, Adam moments, gradients, BN statistics and SN
+    vectors stay in the parameters' dtype, the grid-loss target, the sum of
+    the samples, the scores and the losses are at least f32.
+    ``watch_gradients`` adds each layer path's gradient norm, two levels deep
+    (``train/grad_norm/<path>``, D's under ``train/grad_norm/discriminator/``);
+    ``watch_histograms`` adds ``metrics["train/hist"]``, per layer path the
+    symlog histogram (:func:`_histogram`) of the post-step parameters, the
+    G gradients and the last D step's gradients. Keys follow the JAX step's
+    param-tree paths.
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
     n_gen = model.generation_steps
+    compute_dtype = _compute_dtype(model, compute_dtype)
 
     def train_step(state: TrainState, images, future_images, generator=None, draws=None):
         mdl = state.model
-        images, future_images, real_seq = _batches(mdl, images, future_images)
+        images, future_images, real_seq, real_seq_c = _batches(
+            mdl, images, future_images, compute_dtype)
         if draws is None:
             draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward)
         b = images.shape[0]
         g_params, d_params = split_params(mdl)
         with _mode(mdl, True):
-            d_losses, d_grads = [], []
+            d_losses, d_grads, d_r1 = [], [], []
             for z, frames in zip(draws.d_z, draws.d_frames):
                 with torch.no_grad():
                     preds = mdl(images, z=z)
-                concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+                gen_seq = torch.cat([images, preds], dim=1)
+                concat = torch.cat([real_seq_c, gen_seq], dim=0)
                 rs, rt, gs, gt = _split_scores(mdl.discriminate(concat, frame_indices=frames), b)
                 loss = loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt)
+                if r1_gamma > 0.0:
+                    r1 = _r1_penalty(mdl, real_seq, gen_seq, frames, b)
+                    loss = loss + r1_gamma * r1
+                    d_r1.append(r1.detach())
                 grads = _grads(loss, d_params)
                 _apply(state.d_opt, state.d_sched, d_params, grads)
                 d_losses.append(loss.detach())
@@ -327,18 +454,19 @@ def make_train_step(
                     )
                 else:
                     preds = rollout(z)
-                concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+                concat = torch.cat([real_seq_c, torch.cat([images, preds], dim=1)], dim=0)
                 gen_scores.append(mdl.discriminate(concat, frame_indices=frames)[b:])
-                sum_preds = sum_preds + preds
+                sum_preds = sum_preds + _at_least_f32(preds)
             grid = grid_loss(sum_preds / n_gen, future_images)
-            g_disc_loss = loss_hinge_gen(torch.stack(gen_scores))
+            g_disc_loss = loss_hinge_gen(_at_least_f32(torch.stack(gen_scores)))
             g_loss = g_disc_loss + mdl.grid_lambda * grid
             g_grads = _grads(g_loss, g_params)
             _apply(state.g_opt, state.g_sched, g_params, g_grads)
 
+            generated = None
             if logging_forward:
                 with torch.no_grad():
-                    mdl(images, z=draws.log_z)
+                    generated = mdl(images, z=draws.log_z)
         state.step += 1
 
         metrics = {
@@ -349,15 +477,31 @@ def make_train_step(
             "train/g_grad_norm": _global_norm(g_grads),
             "train/d_grad_norm": _global_norm(d_grads[-1]),
         }
+        if r1_gamma > 0.0:
+            metrics["train/d_r1"] = d_r1[-1]
+        if watch_gradients:
+            metrics.update(_layer_grad_norms(mdl, g_grads, "train/grad_norm/"))
+            metrics.update(_layer_grad_norms(
+                mdl, d_grads[-1], "train/grad_norm/discriminator/", skip=1))
+        if watch_histograms:
+            params = dict(mdl.named_parameters())
+            metrics["train/hist"] = {
+                **_layer_histograms(mdl, params, "train/hist/params/"),
+                **_layer_histograms(mdl, g_grads, "train/hist/grads/"),
+                **_layer_histograms(mdl, d_grads[-1], "train/hist/grads/discriminator/",
+                                    depth=1, skip=1),
+            }
         if return_grads:
             metrics["g_grads"] = g_grads
             metrics["d_grads"] = {k: torch.stack([g[k] for g in d_grads]) for k in d_params}
+        if mdl.visualize and generated is not None:
+            metrics["train/generated_images"] = generated
         return metrics
 
     return train_step
 
 
-def make_eval_step(model):
+def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None):
     """Build ``eval_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
     The validation step (``training.py:731-802`` in JAX): the same losses
@@ -365,20 +509,25 @@ def make_eval_step(model):
     no gradients and no updates. Two D evaluations, each on a fresh sample
     (``val/d_loss`` is the last, ``val/d_loss_first`` the first), then
     ``generation_steps`` samples for the grid loss and the generator hinge.
+    ``compute_dtype`` as in :func:`make_train_step`: a bf16 step runs the
+    kernels' bf16 variants; the mean of the samples and the losses are at
+    least f32.
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
+    compute_dtype = _compute_dtype(model, compute_dtype)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, future_images, generator=None, draws=None):
         mdl = state.model
-        images, future_images, real_seq = _batches(mdl, images, future_images)
+        images, future_images, real_seq, real_seq_c = _batches(
+            mdl, images, future_images, compute_dtype)
         if draws is None:
             draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward=False)
         b = images.shape[0]
 
         def score(z, frames):
             preds = mdl(images, z=z)
-            concat = torch.cat([real_seq, torch.cat([images, preds], dim=1)], dim=0)
+            concat = torch.cat([real_seq_c, torch.cat([images, preds], dim=1)], dim=0)
             return preds, mdl.discriminate(concat, frame_indices=frames)
 
         with _mode(mdl, False):
@@ -387,8 +536,9 @@ def make_eval_step(model):
                 rs, rt, gs, gt = _split_scores(score(z, frames)[1], b)
                 d_losses.append(loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt))
             preds, scores = zip(*(score(z, f) for z, f in zip(draws.g_z, draws.g_frames)))
-        grid = grid_loss(torch.stack(preds).mean(dim=0), future_images)
-        g_loss = loss_hinge_gen(torch.stack([s[b:] for s in scores])) + mdl.grid_lambda * grid
+        grid = grid_loss(_at_least_f32(torch.stack(preds)).mean(dim=0), future_images)
+        gen_scores = _at_least_f32(torch.stack([s[b:] for s in scores]))
+        g_loss = loss_hinge_gen(gen_scores) + mdl.grid_lambda * grid
         return {
             "val/d_loss": d_losses[-1],
             "val/g_loss": g_loss,

@@ -383,3 +383,58 @@ def test_served_and_tiled_paths_take_card_inputs(dev, tmp_path, monkeypatch):
     monkeypatch.undo()
     np.testing.assert_array_equal(got, want)
     assert on_card.device == dev
+
+
+def test_prefetch_to_device_delivers_the_host_bits(dev):
+    from skillful_nowcasting_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(7)
+    items = [(rng.random((2, 4, 1, 32, 32), np.float32), np.arange(3)) for _ in range(5)]
+    out = list(prefetch_to_device(iter(items), size=2))
+    assert len(out) == 5
+    for (a, b), (x, y) in zip(out, items):
+        assert a.device == dev and a.dtype == torch.float32
+        assert np.array_equal(a.cpu().numpy(), x) and np.array_equal(b.cpu().numpy(), y)
+    cast = next(prefetch_to_device(iter(items), transfer_dtype=torch.bfloat16))[0]
+    assert cast.dtype == torch.bfloat16
+    assert torch.equal(cast.cpu(), torch.from_numpy(items[0][0]).bfloat16())
+
+
+def test_synthetic_radar_batches_device_on_the_card(dev):
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+
+    kw = dict(batch_size=2, input_frames=4, target_frames=18, size=64, seed=3)
+    images, future = next(synthetic_radar_batches_device(**kw))
+    assert images.device == dev and images.shape == (2, 4, 1, 64, 64)
+    assert future.shape == (2, 18, 1, 64, 64) and float(future.max()) > 1.0
+    assert torch.equal(images, next(synthetic_radar_batches_device(**kw))[0])
+
+
+def test_r1_step_on_card_matches_cpu(dev):
+    """A tiny float64 R1 step (SGD, fixed draws): card vs CPU to 1e-3 of each tensor."""
+    base = random_fill(DGMR(**TRAIN_TINY, device="cpu"), torch.Generator().manual_seed(0))
+    training.desaturate_discriminator(base)
+    x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+    y = torch.rand((2, 2, 1, 64, 64), generator=torch.Generator().manual_seed(2))
+    draws = training.draw_step(base, 6, torch.Generator().manual_seed(3))
+
+    def step(device):
+        model = DGMR(**TRAIN_TINY, device=device)
+        model.load_state_dict(base.state_dict())
+        model.double()
+        g, d = training.split_params(model)
+        state = training.init_train_state(
+            model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
+        m = training.make_train_step(model, return_grads=True, r1_gamma=10.0)(
+            state, x.double(), y.double(), draws=draws)
+        cpu = {k: v.detach().cpu() for k, v in m.items() if k.startswith("train/")}
+        cpu.update({f"d {k}": v.cpu() for k, v in m["d_grads"].items()})
+        cpu.update({f"param {k}": p.detach().cpu() for k, p in model.named_parameters()})
+        return cpu
+
+    card, host = step(dev), step("cpu")
+    assert host["train/d_r1"].item() > 0
+    top = max(v.abs().max().item() for v in host.values())
+    for k, want in host.items():
+        err = (card[k] - want).abs().max().item()
+        assert err <= 1e-3 * max(want.abs().max().item(), 1e-6 * top), (k, err)

@@ -161,6 +161,13 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.hub.safetensors\n"
         "import skillful_nowcasting_tpu_torch.serving\n"
         "import skillful_nowcasting_tpu_torch.ops.tma\n"
+        "import skillful_nowcasting_tpu_torch.trainer, skillful_nowcasting_tpu_torch.checkpoint\n"
+        "import skillful_nowcasting_tpu_torch.logging_utils, skillful_nowcasting_tpu_torch.profiling\n"
+        "import skillful_nowcasting_tpu_torch.run, skillful_nowcasting_tpu_torch.data\n"
+        "import skillful_nowcasting_tpu_torch.data.windows, skillful_nowcasting_tpu_torch.data.native\n"
+        "import skillful_nowcasting_tpu_torch.data.crops, skillful_nowcasting_tpu_torch.data.synthetic\n"
+        "import skillful_nowcasting_tpu_torch.data.nimrod, skillful_nowcasting_tpu_torch.data.mrms\n"
+        "import skillful_nowcasting_tpu_torch.data.prefetch\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
