@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training and retraining paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining and data-parallel paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
@@ -96,6 +96,31 @@ the top kernels by device time) and prints no result line.
    Trainer resumes it to step 4. The train steps launch no kernel; each
    validation launches 4 / 8 bf16 kernels per generator forward and no f32
    kernel.
+17. Data parallelism on one card: the parent (kernels built, its models
+   freed) starts two ranks of this script (``--dp-rank``), each its own
+   process on ``cuda:0`` over ``gloo`` (NCCL refuses two ranks on one card),
+   with a timeout; a rank that fails fails the phase. (a) Tiny config,
+   float64, SGD, explicit draws: both DP modes on the 2 card ranks against
+   the same on 2 CPU ranks (the same processes), and ``pjit`` on 2 x B=1
+   against the plain step at B=2 on the card, each <= 1e-3 of a tensor
+   (phase 8's floor). (b) Full width: ``Trainer.fit(mesh, dp_mode="shard_map")``
+   in bf16 with R1, B=2 a rank, ``val_every=2``, ``ckpt_every=2``, SIGTERM
+   to rank 1 after step 2 (both ranks stop there), then new Trainers resume
+   to step 3: a gathered checksum of every parameter and buffer equal on
+   both ranks after every step, checkpoints written by rank 0 only and
+   holding both ranks' generator states, every rank restoring, validation
+   4 / 8 bf16 launches a forward on each rank; per rank the seconds per
+   step, the gradient all-reduces' bytes and seconds and the peak memory
+   (two ranks share the SMs and gloo stages through the host: no scaling
+   figure). (c) Phase 10's 1184^2 field through ``tiled_nowcast_device(mesh=)``
+   and ``tiled_nowcast(mesh=)`` at 8 tiles a forward (two ranks' f32 tile
+   batches share the card's memory), each bit-identical to one rank's run
+   with the same forwards and 4 / 8 launches a forward on each rank;
+   ``make_dp_generate`` against ``make_generate`` on the same latents;
+   ``halo_conv2d`` on CUDA tensors against the dense conv. (d) NCCL, a world
+   of one from a launcher's environment: one all-reduce of a buffer the size
+   of the model's gradients and a train step on the mesh of one. Then a
+   diagnostic: whether gloo's point-to-point calls take CUDA tensors.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -1266,6 +1291,522 @@ def bf16_full_width(torch, dev, model, card, counters):
     return launches, {"mrms_field_bf16": mrms}
 
 
+# ---------------------------------------------------------------------------
+# 17. Data parallelism on one card: two gloo ranks on cuda:0, each its own process.
+
+DP_RANKS = 2
+DP_TIMEOUT = 420  # seconds for both ranks together; the kernels are built before they start
+# 17c's tiles a forward: half of phase 10's 16. Two ranks' f32 tile batches share one card's
+# memory, and where a cuDNN conv cannot allocate its preferred workspace it takes another
+# algorithm, with other bits (two ranks at 16 tiles did, 8.9e-08 apart; one rank alone or
+# both at 8 tiles did not).
+DP_TILE_BATCH = 8
+DP_SCALING_NOTE = ("two ranks share one card's SMs and gloo stages every collective through "
+                   "the host: these figures say nothing of multi-card scaling")
+
+
+def card_name() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return f"{smi} (nvidia-smi name, power.limit)"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bits_checksum(torch, tensors, device):
+    """Two int64 sums of every tensor's bits (plain and position-weighted, wrapping mod 2^64)."""
+    acc = torch.zeros(2, dtype=torch.int64, device=device)
+    for t in tensors:
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int32 if v.element_size() == 4 else torch.int64).to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64, device=device)
+        acc[0] += v.sum()
+        acc[1] += (v * w).sum()
+    return acc
+
+
+def worst_rel(got: dict, want: dict) -> tuple:
+    """Largest max-abs difference over a tensor's max-abs (floored at 1e-6 of the group's largest)."""
+    top = max(v.abs().max().item() for v in want.values())
+    return max(((got[k] - w).abs().max().item() / max(w.abs().max().item(), 1e-6 * top), k)
+               for k, w in want.items())
+
+
+def dp_tiny_parity(torch, rank, dev, meshes, say) -> None:
+    """17a: both DP modes, tiny config, float64, SGD: 2 card ranks against 2 CPU ranks; pjit
+    on 2 x B=1 against the plain step at B=2 on the card."""
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.parallel import make_dp_train_step
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    base = training.desaturate_discriminator(
+        random_fill(DGMR(**TINY, device="cpu"), torch.Generator().manual_seed(90)))
+    gen = torch.Generator().manual_seed(91)
+    x = torch.rand((2, 4, 1, 64, 64), generator=gen).double()
+    y = torch.rand((2, 2, 1, 64, 64), generator=gen).double()
+    per_rank = training.draw_step(base, 6, torch.Generator().manual_seed(92 + rank))
+    shared = training.draw_step(base, 6, torch.Generator().manual_seed(95))
+    mine = slice(rank, rank + 1)
+
+    def one(mode, device, mesh, draws, rows):
+        model = DGMR(**TINY, device=device)
+        model.load_state_dict(base.state_dict())
+        model.double()
+        g, d = training.split_params(model)
+        state = training.init_train_state(
+            model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
+        step = (training.make_train_step(model, return_grads=True) if mesh is None else
+                make_dp_train_step(model, mesh, mode=mode, return_grads=True))
+        m = step(state, x[rows], y[rows], draws=draws)
+        cpu = lambda v: v.detach().to("cpu", torch.float64)  # noqa: E731
+        return {"losses": {k: cpu(v).reshape(1) for k, v in m.items() if k.startswith("train/")},
+                "g grads": {k: cpu(v) for k, v in m["g_grads"].items()},
+                "d grads": {k: cpu(v) for k, v in m["d_grads"].items()},
+                "params": {k: cpu(p) for k, p in model.named_parameters()}}
+
+    results = {}
+    for mode, draws in (("shard_map", per_rank), ("pjit", shared)):
+        card = results[mode] = one(mode, dev, meshes["card"], draws, mine)
+        host = one(mode, "cpu", meshes["cpu"], draws, mine)
+        worst = max(worst_rel(card[g], host[g]) + (g,) for g in card)
+        say(f"17a {mode} float64 (2 card ranks vs 2 CPU ranks, one tiny SGD step, B=1 a rank): "
+            f"worst {worst[0]:.3e} of the tensor's max-abs at {worst[2]} {worst[1]}")
+        if not worst[0] <= TRAIN_TOL:
+            fail(f"DP {mode}: card and CPU ranks differ by {worst[0]} > {TRAIN_TOL}")
+    if rank == 0:  # the pjit ranks' averaged result is the global batch's step
+        plain = one(None, dev, None, shared, slice(0, 2))
+        worst = max(worst_rel(results["pjit"][g], plain[g]) + (g,) for g in plain)
+        say(f"17a pjit on 2 ranks x B=1 vs the plain step at B=2 (card, float64): worst "
+            f"{worst[0]:.3e} of the tensor's max-abs at {worst[2]} {worst[1]}")
+        if not worst[0] <= TRAIN_TOL:
+            fail(f"DP pjit differs from the global-batch step by {worst[0]} > {TRAIN_TOL}")
+
+
+def dp_trainer_full_width(torch, rank, dev, mesh, root, counters, say) -> dict:
+    """17b: Trainer.fit on 2 ranks (shard_map, bf16, R1), stopped by SIGTERM after step 2 on
+    rank 1 only, then resumed by new Trainers to step 3; replicas checked after every step."""
+    import torch.distributed as dist
+
+    import skillful_nowcasting_tpu_torch.trainer as trainer_module
+    from skillful_nowcasting_tpu_torch import DGMR, checkpoint, training
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.parallel import gather_rows
+    from skillful_nowcasting_tpu_torch.parallel import mesh as pmesh
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    saves, reduces, restored = [], [], []
+    save, reduce_, restore = (checkpoint.CheckpointManager.save, pmesh.all_reduce_mean_,
+                              trainer_module.restore_state)
+
+    def counted_save(self, step, payload, metrics=None):
+        saves.append(step)
+        return save(self, step, payload, metrics)
+
+    def timed_reduce(tensors, group):
+        tensors = list(tensors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_(tensors, group)
+        torch.cuda.synchronize()
+        reduces.append((sum(t.numel() * t.element_size() for t in tensors),
+                        time.perf_counter() - t0))
+
+    def recorded_restore(*args, **kw):
+        restored.append(restore(*args, **kw))
+        return restored[-1]
+
+    checkpoint.CheckpointManager.save = counted_save
+    pmesh.all_reduce_mean_ = timed_reduce
+    trainer_module.restore_state = recorded_restore
+
+    def fresh_model(seed):  # other weights on each rank: fit starts every rank from rank 0's
+        return training.desaturate_discriminator(
+            random_fill(DGMR(), torch.Generator().manual_seed(seed)))
+
+    def make_trainer(model, max_steps, sigterm_after=None):
+        trainer = trainer_module.Trainer(
+            model, max_steps=max_steps, ckpt_dir=f"{root}/ckpt", log_dir=f"{root}/log",
+            compute_dtype=torch.bfloat16, r1_gamma=R1_GAMMA, ckpt_every=2, val_every=2,
+            log_every=1, prefetch=2, seed=50, mesh=mesh, dp_mode="shard_map")
+        step = trainer.train_step
+        seconds, equal = [], []
+
+        def checked(state, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, *args, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            sums = gather_rows(bits_checksum(torch, state.model.state_dict().values(), dev),
+                               mesh.group)
+            equal.append(bool((sums == sums[0]).all()))
+            if not equal[-1]:
+                fail(f"17b: the replicas differ after step {state.step}: checksums {sums.tolist()}")
+            if sigterm_after == state.step:  # held by the Trainer to the step's end
+                os.kill(os.getpid(), signal.SIGTERM)
+            return metrics
+
+        trainer.train_step = checked
+        return trainer, seconds, equal
+
+    try:
+        model = fresh_model(60 + rank)
+        g, d = training.split_params(model)
+        g_bytes, d_bytes = (sum(p.numel() * p.element_size() for p in ps.values()) for ps in (g, d))
+        trainer, seconds, equal = make_trainer(model, 10, sigterm_after=2 if rank == 1 else None)
+        for counter in counters:
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = trainer.fit(synthetic_radar_batches_device(batch_size=2, seed=70 + rank),
+                            synthetic_radar_batches_device(batch_size=2, seed=72 + rank))
+        fit_s = time.perf_counter() - t0
+        val_launches = launch_counts(counters)
+        forwards = 2 + model.generation_steps
+        expected = expected_launches(forwards, bf16=True)
+        grads = [(b, s) for b, s in reduces if b in (g_bytes, d_bytes)]
+        say(f"17b Trainer.fit (2 ranks, shard_map, bf16, r1_gamma={R1_GAMMA}, B=2 a rank): "
+            f"stopped at step {state.step} by SIGTERM to rank 1 in {fit_s:.4f} s; seconds per "
+            f"step {[round(s, 4) for s in seconds]}; gradient all-reduces (bytes, seconds) "
+            f"{[(b, round(s, 4)) for b, s in grads]} (G {g_bytes} B, D {d_bytes} B); peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; validation at "
+            f"step 2: {forwards} generator forwards, launches {val_launches}, expected "
+            f"{expected}; replicas bit-identical after each step {equal} ({DP_SCALING_NOTE})")
+        if state.step != 2 or equal != [True, True] or val_launches != expected:
+            fail(f"17b: step {state.step}, replicas {equal}, launches {val_launches}")
+        if len(grads) != 3 * 2:
+            fail(f"17b: {len(grads)} gradient all-reduces in 2 steps, expected 3 a step")
+        latest = checkpoint.make_manager(f"{root}/ckpt/latest")
+        if rank == 0:
+            payload = torch.load(os.path.join(latest.directory, "2", checkpoint.STATE_FILE),
+                                 map_location="cpu", weights_only=True, mmap=True)
+            n_gen = len(payload.get("rank_generators", []))
+            say(f"17b checkpoint: latest/ {latest.all_steps()}, {n_gen} ranks' generator states; "
+                f"saves by this rank {saves}")
+            if latest.all_steps() != [2] or n_gen != DP_RANKS or saves != [2, 2]:
+                fail(f"17b: latest/ {latest.all_steps()}, {n_gen} generators, saves {saves}")
+        elif saves:
+            fail(f"17b: rank {rank} wrote checkpoints {saves}")
+        del trainer, state, model
+        torch.cuda.empty_cache()
+        dist.barrier()  # rank 0 has read the checkpoint before anyone writes again
+
+        trainer, seconds, equal = make_trainer(fresh_model(80 + rank), 3)
+        t0 = time.perf_counter()
+        state = trainer.fit(synthetic_radar_batches_device(batch_size=2, seed=74 + rank),
+                            synthetic_radar_batches_device(batch_size=2, seed=76 + rank))
+        say(f"17b resumed: this rank restored step {restored} and trained to {state.step} in "
+            f"{time.perf_counter() - t0:.4f} s (step {[round(s, 4) for s in seconds]} s); replicas "
+            f"bit-identical {equal}; latest/ {latest.all_steps()}")
+        if restored != [2] or state.step != 3 or equal != [True]:
+            fail(f"17b resume: restored {restored}, step {state.step}, replicas {equal}")
+        if (rank == 0) != bool(saves[2:]):
+            fail(f"17b resume: rank {rank} saves {saves}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    finally:
+        checkpoint.CheckpointManager.save = save
+        pmesh.all_reduce_mean_ = reduce_
+        trainer_module.restore_state = restore
+    return {"dp_trainer_validation_bf16": val_launches}, g_bytes + d_bytes
+
+
+def dp_tilers_and_generate(torch, rank, dev, mesh, counters, say) -> dict:
+    """17c: phase 10's 1184^2 field through both tilers on the mesh, and make_dp_generate."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from skillful_nowcasting_tpu_torch.inference import (
+        make_generate,
+        smooth_test_field,
+        tiled_nowcast,
+        tiled_nowcast_device,
+    )
+    from skillful_nowcasting_tpu_torch.parallel import gather_rows, make_dp_generate
+
+    import gc
+
+    # cuDNN takes the first algorithm whose workspace it can allocate, so free memory can
+    # change a conv's bits: start from an empty cache, and print what is free.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"17c device memory free at the start: {free / 2**30:.3f} of {total / 2**30:.3f} GiB")
+    model = serving_model(torch, dev)  # the same seeded weights on both ranks
+    n, tile, overlap = TILED_FIELD, 256, 64
+    frames = smooth_test_field(4, n, n, 1, seed=5)
+    z = torch.randn((1, 8, 8, 8), generator=torch.Generator().manual_seed(32))
+    kw = dict(tile=tile, overlap=overlap, batch_tiles=DP_TILE_BATCH, z=z)
+    by_path, out = {}, {}
+    # Device tiler: 49 tiles in 7 batches of 8, 4 and 3 a rank. Host tiler: 36 tiles in 5
+    # batches of 8, 4 tiles of each a rank (rank 1 has none in the last).
+    n_dev = -(-device_tiles(n, n) // DP_TILE_BATCH)
+    host_batches = [min(DP_TILE_BATCH, host_tiles(n, n) - s)
+                    for s in range(0, host_tiles(n, n), DP_TILE_BATCH)]
+    share, per = DP_TILE_BATCH // DP_RANKS, -(-n_dev // DP_RANKS)
+    forwards = {"tiled_nowcast_device": max(0, min((rank + 1) * per, n_dev) - rank * per),
+                "tiled_nowcast": sum(1 for b in host_batches if b > rank * share)}
+    for name, fn in (("tiled_nowcast_device", tiled_nowcast_device),
+                     ("tiled_nowcast", tiled_nowcast)):
+        calls = counted_forwards(model, counters)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(model, frames, mesh=mesh, **kw)
+        seconds = time.perf_counter() - t0
+        by_path[f"{name}_mesh"] = expect_launches(
+            model, counters, calls, forwards[name], f"17c {name} {n}^2 on 2 ranks, rank {rank}")
+        say(f"17c {name} {n}^2 on 2 ranks: {seconds:.4f} s on this rank ({DP_SCALING_NOTE})")
+        if (out[name] is None) != (rank != 0):
+            fail(f"17c {name}: rank {rank} returned {type(out[name])}")
+    if rank == 0:  # one rank's runs with the same forwards: 8 tiles / 4 tiles a forward
+        for name, one in (("tiled_nowcast_device", tiled_nowcast_device(model, frames, **kw)),
+                          ("tiled_nowcast", tiled_nowcast(model, frames, **{
+                              **kw, "batch_tiles": share}))):
+            same = np.array_equal(out[name], one)
+            say(f"17c {name} on 2 ranks vs one rank: bit-identical {same}, max |difference| "
+                f"{np.abs(out[name] - one).max():.3e}")
+            if not same or not np.isfinite(one).all():
+                fail(f"17c {name}: the 2-rank field differs from the one-rank field")
+
+    x = torch.rand((DP_RANKS, 4, 1, 256, 256), generator=torch.Generator().manual_seed(34))
+    calls = counted_forwards(model, counters)
+    mine = make_dp_generate(model, mesh, num_samples=2)(x, torch.Generator().manual_seed(35))
+    by_path["dp_generate"] = expect_launches(model, counters, calls, 2,
+                                             f"17c make_dp_generate S=2, rank {rank}")
+    own = make_generate(model, 2)(x[rank:rank + 1], torch.Generator().manual_seed(35))
+    rows = gather_rows(mine.contiguous(), mesh.group)
+    if not torch.equal(mine, own):
+        fail(f"17c make_dp_generate: rank {rank}'s share differs from make_generate of its rows")
+    if rank == 0:
+        whole = make_generate(model, 2)(x, torch.Generator().manual_seed(35))
+        err = (torch.cat(list(rows), dim=1) - whole).abs().max().item()
+        say(f"17c make_dp_generate vs make_generate (same latents): each rank's share "
+            f"bit-identical to make_generate of its rows; gathered vs the B=2 batch max_abs_err "
+            f"{err:.3e} (the kernels' split-K plan depends on the batch)")
+        if not err <= KERNEL_TOL:
+            fail(f"17c make_dp_generate differs from make_generate by {err}")
+    dist.barrier()
+    del model
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def dp_halo(torch, rank, dev, mesh, say) -> None:
+    """halo_conv2d on CUDA tensors over gloo (halo rows staged through the host) vs a dense conv."""
+    import torch.nn.functional as F
+
+    from skillful_nowcasting_tpu_torch.parallel import gather_rows, halo_conv2d
+
+    gen = torch.Generator().manual_seed(36)
+    x = torch.randn((2, 48, 64, 64), generator=gen).to(dev)
+    w = (torch.randn((48, 48, 3, 3), generator=gen) / 20).to(dev)
+    mine = halo_conv2d(x[:, :, rank * 32:(rank + 1) * 32], w, mesh.group)
+    whole = torch.cat(list(gather_rows(mine.contiguous(), mesh.group)), dim=2)
+    err = (whole - F.conv2d(x, w, padding=1)).abs().max().item()
+    say(f"17 halo_conv2d on 2 ranks (gloo, CUDA tensors; the halo rows staged through the host) "
+        f"vs the dense conv: max_abs_err {err:.3e}")
+    if not err <= KERNEL_TOL:
+        fail(f"17 halo_conv2d differs from the dense conv by {err}")
+
+
+def dp_rank_main(args) -> None:
+    """One rank of phase 17 (``--dp-rank``): gloo on cuda:0; writes its launches as JSON."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(4)  # two ranks on the card machine's 8 cores
+    from skillful_nowcasting_tpu_torch.ops import convgru_rollout, gblock_fused
+    from skillful_nowcasting_tpu_torch.parallel import make_mesh
+
+    rank, dev = args.dp_rank, torch.device("cuda", 0)
+    card = card_name()
+
+    def say(line: str) -> None:
+        print(f"dp rank {rank}: {line}; on {card}", flush=True)
+
+    counters = (Counter(convgru_rollout, "launches", "convgru_rollout"),
+                Counter(gblock_fused, "launches", "gblock_fused"),
+                Counter(convgru_rollout, "launches_bf16", "convgru_rollout_bf16"),
+                Counter(gblock_fused, "launches_bf16", "gblock_fused_bf16"))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.dp_port}", rank=rank,
+                            world_size=DP_RANKS, timeout=timedelta(seconds=300))
+    try:
+        meshes = {"card": make_mesh(device=dev), "cpu": make_mesh(device="cpu")}
+        marks = [time.perf_counter()]
+        dp_tiny_parity(torch, rank, dev, meshes, say)
+        marks.append(time.perf_counter())
+        by_path, param_bytes = dp_trainer_full_width(torch, rank, dev, meshes["card"],
+                                                     args.dp_dir, counters, say)
+        marks.append(time.perf_counter())
+        by_path.update(dp_tilers_and_generate(torch, rank, dev, meshes["card"], counters, say))
+        dp_halo(torch, rank, dev, meshes["card"], say)
+        marks.append(time.perf_counter())
+        say("17 seconds: a {:.1f}, b {:.1f}, c {:.1f}".format(
+            *(b - a for a, b in zip(marks, marks[1:]))))
+        with open(os.path.join(args.dp_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"launches": by_path, "param_bytes": param_bytes}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel(torch, dev, card) -> dict:
+    """Phase 17: two ranks on cuda:0 over gloo (17a-c in the ranks), then 17d: NCCL, a world of one."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"17 the parent before the ranks start: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; the card "
+          f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free")
+    root = tempfile.mkdtemp(prefix="dgmr_dp_")
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(DP_RANKS):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-port",
+                 str(port), "--dp-dir", root], stdout=logs[-1], stderr=subprocess.STDOUT,
+                env={**os.environ, "OMP_NUM_THREADS": "4"}))
+        t0 = time.perf_counter()
+        while any(p.poll() is None for p in procs):  # a failed rank fails the phase at once
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > DP_TIMEOUT:
+                break
+            time.sleep(0.5)
+        codes = [p.poll() for p in procs]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, log in enumerate(logs):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(line if line.startswith("dp rank") else f"dp rank {r} | {line}")
+        if codes != [0] * DP_RANKS:
+            fail(f"phase 17: rank exit codes {codes} (None: killed after {DP_TIMEOUT} s or "
+                 "after the other rank failed)")
+        results = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        for log in logs:
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    by_path = {f"{path}_rank{r}": counts for r, res in enumerate(results)
+               for path, counts in res["launches"].items()}
+    nccl_world_of_one(torch, dev, card, results[0]["param_bytes"] // 4)
+    gloo_p2p_probe(card)
+    return by_path
+
+
+GLOO_P2P_PROBE = """
+import sys
+from datetime import timedelta
+import torch, torch.distributed as dist
+r = int(sys.argv[1])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=r,
+                        world_size=2, timeout=timedelta(seconds=30))
+mine, got = torch.full((4,), 1.0 + r, device="cuda:0"), torch.zeros(4, device="cuda:0")
+for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, 1 - r),
+                                    dist.P2POp(dist.irecv, got, 1 - r)]):
+    work.wait()
+torch.cuda.synchronize()
+print("received", got.tolist(), "expected", [2.0 - r] * 4)
+"""
+
+
+def gloo_p2p_probe(card) -> None:
+    """Whether gloo's point-to-point calls take CUDA tensors: two throwaway processes try it.
+
+    A diagnostic (it fails nothing): ``halo_exchange`` stages a gloo group's
+    halo rows through the host either way.
+    """
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO_P2P_PROBE, str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=90)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + " (killed after 90 s)")
+    lines = [(o.strip().splitlines() or ["no output"])[-1][:200] for o in outs]
+    print(f"17 gloo point-to-point of CUDA tensors (diagnostic): exit codes "
+          f"{[p.returncode for p in procs]}, last lines {lines}; on {card}")
+
+
+def nccl_world_of_one(torch, dev, card, n_params: int) -> None:
+    """17d: init_distributed over NCCL from a launcher's environment, a world of one: one
+    all-reduce of a buffer the size of the full-width model's gradients, then a train step on
+    the mesh of one (the plain step)."""
+    import torch.distributed as dist
+
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.parallel import (
+        init_distributed,
+        make_dp_train_step,
+        make_mesh,
+    )
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_distributed(backend="nccl")
+        try:
+            buf = torch.randn(n_params, generator=torch.Generator().manual_seed(37)).to(dev)
+            want = buf.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            ar_s = time.perf_counter() - t0
+            mesh = make_mesh()
+            model = training.desaturate_discriminator(
+                random_fill(DGMR(**TINY, device=dev), torch.Generator().manual_seed(38)))
+            state = training.init_train_state(model)
+            x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(39))
+            y = torch.rand((2, 2, 1, 64, 64), generator=torch.Generator().manual_seed(40))
+            step = make_dp_train_step(model, mesh)
+            metrics = step(state, x, y, torch.Generator().manual_seed(41))
+            finite = all(bool(torch.isfinite(v)) for v in metrics.values())
+            print(f"17d NCCL world of one ({dist.get_backend()}): all-reduce of {n_params} f32 "
+                  f"({4 * n_params} bytes, the full-width model's gradients) in {ar_s:.4f} s, "
+                  f"unchanged {torch.equal(buf, want)}; mesh {mesh.shape}; a tiny train step on "
+                  f"it finite {finite}; NCCL across two or more cards is not verified here; on "
+                  f"{card}")
+            if not torch.equal(buf, want) or not finite or state.step != 1:
+                fail("17d: the NCCL world of one changed the buffer or its step failed")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 _T0 = time.perf_counter()
 _LAST = [_T0]
 
@@ -1285,7 +1826,13 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-step", action="store_true",
                         help="only profile one full-width bf16 train step (no checks, no result)")
+    parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dp_rank is not None:  # one rank of phase 17, started by the phase itself
+        dp_rank_main(args)
+        return
 
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1520,6 +2067,10 @@ def main() -> None:
     by_path.update(retrain_full_width(torch, dev, card, counters))
 
     stamp("16")
+    # 17. Data parallelism on one card: two gloo ranks (tiny parity, Trainer, tilers), NCCL of one.
+    by_path.update(data_parallel(torch, dev, card))
+
+    stamp("17")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

@@ -3,8 +3,9 @@
 A checkpoint is ``<directory>/<step>/state.pt``: one ``torch.save`` of the
 model's state dict (parameters and BN/SN buffers), both optimizers, both lr
 schedulers, ``step``, the training ``torch.Generator``'s state and the
-scalar metrics; ``metrics.json`` beside it holds the metrics for best
-tracking. A file is written aside and renamed over its name, so a reader
+scalar metrics (and, from a data-parallel run, every rank's generator
+state); ``metrics.json`` beside it holds the metrics for best tracking. A
+file is written aside and renamed over its name, so a reader
 never sees a partial file and a file still mapped by a reader is never
 overwritten in place (overwriting a mapped file kills the process with
 SIGBUS). Reading uses ``torch.load(weights_only=True)``: a checkpoint holds
@@ -20,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -128,8 +129,13 @@ def save_state(
     state: TrainState,
     generator: torch.Generator,
     metrics: Optional[Dict[str, float]] = None,
+    rank_generators: Optional[Sequence[torch.Tensor]] = None,
 ) -> None:
-    """Save the whole train state, the training generator's state and the scalar metrics."""
+    """Save the whole train state, the training generator's state and the scalar metrics.
+
+    ``rank_generators``: every rank's generator state, in rank order, from a
+    data-parallel run (:meth:`~.trainer.Trainer._save` gathers them).
+    """
     metrics = {k: float(v) for k, v in (metrics or {}).items()}
     payload = {
         "model": state.model.state_dict(),
@@ -141,6 +147,9 @@ def save_state(
         "generator": generator.get_state(),
         "metrics": metrics,
     }
+    if rank_generators is not None:
+        # Own storage each: set_state reads a view's storage from its start.
+        payload["rank_generators"] = [g.cpu().clone() for g in rank_generators]
     manager.save(step, payload, metrics)
 
 
@@ -149,11 +158,16 @@ def restore_state(
     state: TrainState,
     generator: torch.Generator,
     step: Optional[int] = None,
+    *,
+    rank: int = 0,
+    world: int = 1,
 ) -> int:
     """Load ``step`` (``None``: the latest) into ``state`` and ``generator`` in place; returns the step.
 
     Tensors go to the model's device; the optimizers' moments follow their
-    parameters.
+    parameters. Rank ``rank`` of a data-parallel run of ``world`` ranks
+    takes its own generator state; a checkpoint written by another number
+    of ranks raises.
     """
     payload = manager.restore(step)
     state.model.load_state_dict(payload["model"], strict=True)
@@ -162,7 +176,11 @@ def restore_state(
     state.g_sched.load_state_dict(payload["g_sched"])
     state.d_sched.load_state_dict(payload["d_sched"])
     state.step = int(payload["step"])
-    generator.set_state(payload["generator"])
+    ranks = payload.get("rank_generators")
+    if (len(ranks) if ranks is not None else 1) != world:
+        raise ValueError(f"the checkpoint of step {state.step} holds the generators of "
+                         f"{len(ranks) if ranks is not None else 1} ranks; this run has {world}")
+    generator.set_state(ranks[rank].clone() if ranks is not None else payload["generator"])
     return state.step
 
 

@@ -23,7 +23,8 @@ follows the input's dtype, as in JAX: a bfloat16 batch runs the f32 model in
 bf16 (every layer casts its f32 weights at use; the kernels' bf16
 variants), and the tilers' ``dtype=torch.bfloat16`` runs the tile forwards
 in bf16 and stitches an f32 field. The skill metrics run in float32.
-Multi-card ``mesh`` tiling waits for the port's ``parallel/``.
+With a ``mesh`` (:mod:`.parallel`) both tilers split the tile batches over
+the ranks of its ``data`` axis; rank 0 returns the field, the others ``None``.
 """
 
 from __future__ import annotations
@@ -270,12 +271,22 @@ def seam_discontinuity(out: np.ndarray, *, tile: int, overlap: int, device: bool
     return {"seam_max": seam_max, "bg_p999": bg_p999, "ratio": seam_max / max(bg_p999, 1e-30)}
 
 
-def _tiling(model, tile: int, overlap: int, batch_tiles: int, dtype) -> torch.device:
+def _tiling(model, tile: int, overlap: int, batch_tiles: int, dtype, mesh) -> torch.device:
     if overlap % 2 or tile % 32 or not 0 <= overlap < tile:
         raise ValueError("overlap must be even and in [0, tile), and tile a multiple of 32")
     if batch_tiles < 1:
         raise ValueError(f"batch_tiles must be at least 1, got {batch_tiles}")
-    return _eval_model(model, dtype)
+    device = _eval_model(model, dtype)
+    if mesh is not None:
+        mesh.check_device(device)
+    return device
+
+
+def _data_axis(mesh) -> Tuple[int, int, object]:
+    """This rank's index on the mesh's data axis, the axis' size and its group (0, 1, None without)."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return 0, 1, None
+    return mesh.data_rank, mesh.shape["data"], mesh.data_group
 
 
 def _shared_latent(model, c: int, tile: int, z, generator, device, dtype) -> torch.Tensor:
@@ -299,7 +310,8 @@ def tiled_nowcast(
     generator: Optional[torch.Generator] = None,
     z: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
-) -> np.ndarray:
+    mesh=None,
+) -> Optional[np.ndarray]:
     """Nowcast a radar field of any size by tiles streamed through the host.
 
     Args:
@@ -319,11 +331,22 @@ def tiled_nowcast(
         dtype: the tile forwards' compute dtype: ``None`` / ``torch.float32``,
             or ``torch.bfloat16`` (the serving config: tiles and latent in
             bf16, the kernels' bf16 variants, the stitched field f32).
+        mesh: a :class:`~.parallel.Mesh`: every rank passes the same
+            arguments and forwards its contiguous share of each batch
+            (``batch_tiles`` must be a multiple of the data axis' size), and
+            one all-reduce per batch gathers the shares. The forwards are
+            those of one rank with ``batch_tiles // n`` tiles a forward, so
+            the field is bit-identical to that one-rank run.
 
     Returns:
-        The stitched nowcast ``(T_out, C, H, W)``, float32 numpy in host memory.
+        The stitched nowcast ``(T_out, C, H, W)``, float32 numpy in host
+        memory; ``None`` on every rank of a mesh but rank 0.
     """
-    device = _tiling(model, tile, overlap, batch_tiles, dtype)
+    device = _tiling(model, tile, overlap, batch_tiles, dtype, mesh)
+    rank, n_ranks, group = _data_axis(mesh)
+    if batch_tiles % n_ranks:
+        raise ValueError("batch_tiles must be a multiple of the data axis size")
+    share = batch_tiles // n_ranks
     dtype = dtype or torch.float32
     if isinstance(frames, torch.Tensor):  # this tiler streams from the host by design
         frames = frames.detach().to("cpu", torch.float32).numpy()
@@ -342,8 +365,14 @@ def tiled_nowcast(
     out = np.zeros((model.sampler.forecast_steps, c, full_h, full_w), np.float32)
     for start in range(0, len(positions), batch_tiles):
         chunk = positions[start : start + batch_tiles]
-        batch = np.stack([frames[:, :, i : i + tile, j : j + tile] for i, j in chunk])
-        preds = model(torch.from_numpy(batch).to(device, dtype), z=z).float().cpu().numpy()
+        if group is None:
+            batch = np.stack([frames[:, :, i : i + tile, j : j + tile] for i, j in chunk])
+            preds = model(torch.from_numpy(batch).to(device, dtype), z=z).float().cpu().numpy()
+        else:
+            preds = _gathered_share(model, frames, chunk, rank * share, share, tile, z, device,
+                                    dtype, group)
+            if rank:
+                continue
         for (i, j), pred in zip(chunk, preds):
             top = 0 if i == 0 else margin
             left = 0 if j == 0 else margin
@@ -352,7 +381,25 @@ def tiled_nowcast(
             out[:, :, i + top : i + bottom, j + left : j + right] = pred[
                 :, :, top:bottom, left:right
             ]
-    return out[:, :, :h, :w]
+    return out[:, :, :h, :w] if rank == 0 else None
+
+
+def _gathered_share(model, frames, chunk, first, share, tile, z, device, dtype, group):
+    """Forward tiles ``chunk[first:first + share]``; every rank's share of ``chunk``, gathered (host f32).
+
+    One all-reduce (sum) of a zeroed buffer in which each rank wrote its own
+    predictions: the shares are disjoint, so no value changes.
+    """
+    import torch.distributed as dist
+
+    mine = chunk[first : first + share]
+    t_out, c = model.sampler.forecast_steps, frames.shape[1]
+    buf = torch.zeros((len(chunk), t_out, c, tile, tile), dtype=torch.float32, device=device)
+    if mine:
+        batch = np.stack([frames[:, :, i : i + tile, j : j + tile] for i, j in mine])
+        buf[first : first + len(mine)] = model(torch.from_numpy(batch).to(device, dtype), z=z)
+    dist.all_reduce(buf, group=group)
+    return buf.cpu().numpy()
 
 
 @torch.inference_mode()
@@ -367,7 +414,8 @@ def tiled_nowcast_device(
     z: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
     fetch_stripes: int = 1,
-) -> np.ndarray:
+    mesh=None,
+) -> Optional[np.ndarray]:
     """Device-resident tiled nowcast: the field goes to the device once, the result comes back once.
 
     The field is copied to the model's device and edge-padded there by
@@ -391,11 +439,23 @@ def tiled_nowcast_device(
     arguments and the result as for :func:`tiled_nowcast`, except that a
     ``frames`` tensor already on the model's device is cast there (to
     float32, then ``dtype``) and never passes through the host.
+
+    With a ``mesh`` (:class:`~.parallel.Mesh`) every rank passes the same
+    arguments, holds the whole field and runs its contiguous block of the
+    tile batches (``ceil(batches / n)`` each; the last ranks may run fewer)
+    into a zeroed output buffer. The interiors are disjoint, so one
+    all-reduce (sum) stitches the field, bit-identical to the one-rank
+    result; rank 0 copies it to the host and returns it, the other ranks
+    return ``None``. ``fetch_stripes`` must then be 1.
     """
-    device = _tiling(model, tile, overlap, batch_tiles, dtype)
+    device = _tiling(model, tile, overlap, batch_tiles, dtype, mesh)
     dtype = dtype or torch.float32
     if fetch_stripes < 1:
         raise ValueError(f"fetch_stripes must be at least 1, got {fetch_stripes}")
+    rank, n_ranks, group = _data_axis(mesh)
+    if group is not None and fetch_stripes != 1:
+        raise ValueError("with a mesh the field is stitched by one all-reduce: fetch_stripes "
+                         "must be 1")
     if isinstance(frames, torch.Tensor):  # a field on the card stays there
         field = frames.detach().to(torch.float32).to(device, dtype)
     else:
@@ -415,15 +475,20 @@ def tiled_nowcast_device(
     rows = range(0, hp - tile + 1, stride)
     cols = range(0, wp - tile + 1, stride)
     positions = [(i, j) for i in rows for j in cols]
-    out = torch.empty((model.sampler.forecast_steps, c, h, w), dtype=torch.float32, device=device)
+    starts = range(0, len(positions), batch_tiles)
+    out = (torch.empty if group is None else torch.zeros)(
+        (model.sampler.forecast_steps, c, h, w), dtype=torch.float32, device=device)
+    if group is not None:  # this rank's contiguous block of the batches
+        per = -(-len(starts) // n_ranks)
+        starts = starts[rank * per : (rank + 1) * per]
 
     cuda = device.type == "cuda"
-    host = torch.empty(out.shape, dtype=torch.float32, pin_memory=cuda)
+    host = torch.empty(out.shape, dtype=torch.float32, pin_memory=cuda) if rank == 0 else None
     copier = torch.cuda.Stream(device) if cuda else None
     # Stripe k ends with tile row last[k]: its pixels are final once that row's last tile is.
     last = [s[-1] for s in np.array_split(np.arange(len(rows)), min(fetch_stripes, len(rows)))]
     done_rows = 0  # output rows [0, done_rows) already sent to the host
-    for start in range(0, len(positions), batch_tiles):
+    for start in starts:
         chunk = positions[start : start + batch_tiles]
         tiles = torch.stack([field[:, :, i : i + tile, j : j + tile] for i, j in chunk])
         preds = model(tiles, z=z)
@@ -432,7 +497,7 @@ def tiled_nowcast_device(
             out[:, :, i : i + n_y, j : j + n_x] = pred[
                 :, :, margin : margin + n_y, margin : margin + n_x
             ]
-        while last and (start + len(chunk)) >= (last[0] + 1) * len(cols):
+        while group is None and last and (start + len(chunk)) >= (last[0] + 1) * len(cols):
             y1 = min(rows[last.pop(0)] + stride, h)
             stripe = slice(done_rows, y1)
             if cuda:  # the side stream waits for this stripe's writes, then copies it
@@ -444,6 +509,13 @@ def tiled_nowcast_device(
             else:
                 host[:, :, stripe] = out[:, :, stripe]
             done_rows = y1
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(out, group=group)
+        if rank:
+            return None
+        host.copy_(out)
     if cuda:
         copier.synchronize()
     return host.numpy()

@@ -19,18 +19,83 @@ and bf16 inputs. Train mode follows the JAX module
 ``num_batches_tracked`` (JAX has no such counter) rises by ``S``, the
 number of torch train forwards the call stands for; nothing reads it, since
 the momentum is fixed.
+
+Inside :func:`sync_batch_norm` a layer's train forward is synchronised over a
+process group, as a single-device step on the global batch would compute it
+(the data-parallel ``pjit`` mode): each slice's sums of ``x`` and ``x^2``
+and the element count are summed over the ranks by an autograd-aware
+all-reduce (:class:`_SumOverRanks`) before the mean and variance, so the
+backward pass all-reduces their gradients in turn. The unbiased
+factor uses the global count. Every rank must run the same forwards in the
+same order (and so the same backward and recompute), as the train step does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 
 
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, group):
+    """Synchronise the train-mode forwards of ``model``'s BatchNorms over ``group`` in the block.
+
+    ``group=None`` changes nothing. Each layer keeps the group in its
+    ``sync_group`` attribute while the block runs.
+    """
+    layers = [m for m in model.modules() if isinstance(m, _TorchBatchNorm)]
+    for m in layers:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.sync_group = None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """An all-reduce (sum) whose gradient is the all-reduce of the ranks' gradients.
+
+    Its backward is itself a ``_SumOverRanks``, so a double backward (R1)
+    differentiates through it too. (``torch.distributed.nn.functional.all_reduce``
+    computes the same, and is deprecated.)
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _SumOverRanks.apply(grad, ctx.group), None
+
+
+def _moments(xs: torch.Tensor, red, s: int, group):
+    """Per-slice mean and biased variance ``(S, C)``, and the unbiased factor ``n / (n - 1)``."""
+    n = xs[:, :, 0].numel() // s  # elements of one slice and channel
+    if group is None:
+        mean = xs.mean(dim=red)
+        return mean, (xs * xs).mean(dim=red) - mean * mean, n / max(n - 1, 1)
+    sums = torch.cat([xs.sum(dim=red).reshape(-1), (xs * xs).sum(dim=red).reshape(-1),
+                      xs.new_full((1,), float(n))])
+    sums = _SumOverRanks.apply(sums, group)
+    n = sums[-1].detach()  # the global count, kept on the device
+    mean, sq = sums[:-1].view(2, s, -1) / n
+    return mean, sq - mean * mean, n / (n - 1).clamp_min(1)
+
+
 class _TorchBatchNorm:
     """``forward(x, steps=None)`` shared by the 1-D and 2-D layers below."""
+
+    sync_group = None  # a process group inside sync_batch_norm
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
         if not self.training:
@@ -41,13 +106,11 @@ class _TorchBatchNorm:
         s = steps or 1
         xs = x.unflatten(0, (s, -1)).to(torch.promote_types(x.dtype, torch.float32))
         red = (1,) + tuple(range(3, xs.ndim))  # all but the slice and channel axes
-        mean = xs.mean(dim=red)  # (S, C)
-        var = (xs * xs).mean(dim=red) - mean * mean  # biased
-        n = xs[:, :, 0].numel() // s
+        mean, var, unbiased_factor = _moments(xs, red, s, self.sync_group)  # (S, C), biased
         with torch.no_grad():
             m = self.momentum
             decay = (1.0 - m) ** torch.arange(s - 1, -1, -1, dtype=mean.dtype, device=x.device)
-            unbiased = var * (n / max(n - 1, 1))
+            unbiased = var * unbiased_factor
             for running, stat in ((self.running_mean, mean), (self.running_var, unbiased)):
                 running.copy_((1.0 - m) ** s * running + m * (decay @ stat))
             self.num_batches_tracked.add_(s)

@@ -1,0 +1,39 @@
+"""Data parallelism over ``torch.distributed`` (port of ``skillful_nowcasting_tpu/parallel``).
+
+The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets XLA
+insert the collectives. Here every rank is a process (``torchrun``), the
+:class:`~.mesh.Mesh` is its view of a ``(data, space)`` layout, and the
+collectives are explicit ``torch.distributed`` calls: the gradient and state
+averages of the data-parallel step (:mod:`.dp`), the all-reduce that
+stitches a mesh-sharded tiled nowcast (``inference.tiled_nowcast_device``),
+and the halo rows of a spatially sharded conv (:mod:`.spatial`).
+"""
+
+from .dp import make_dp_eval_step, make_dp_generate, make_dp_train_step
+from .mesh import (
+    Mesh,
+    all_reduce_mean_,
+    gather_rows,
+    init_distributed,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
+from .spatial import halo_conv2d, halo_exchange, make_spatial_conv, make_spatial_forward
+
+__all__ = [
+    "Mesh",
+    "all_reduce_mean_",
+    "gather_rows",
+    "halo_conv2d",
+    "halo_exchange",
+    "init_distributed",
+    "make_dp_eval_step",
+    "make_dp_generate",
+    "make_dp_train_step",
+    "make_mesh",
+    "make_spatial_conv",
+    "make_spatial_forward",
+    "replicate",
+    "shard_batch",
+]

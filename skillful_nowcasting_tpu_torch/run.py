@@ -1,8 +1,7 @@
 """Train DGMR with the port: ``python -m skillful_nowcasting_tpu_torch.run``.
 
-The counterpart of ``train/run.py`` (the same flags, without data
-parallelism's ``--dp-mode`` and ``--mesh-space``). The model trains on the
-card unless ``--device cpu``. Data come from one of:
+The counterpart of ``train/run.py``, with the same flags. The model trains
+on the card unless ``--device cpu``. Data come from one of:
 
 * ``--synthetic`` (``--synthetic-kind noise | radar | radar-device``);
 * ``--nimrod-parquet FILE...``: local parquet files of the nimrod-uk-1km
@@ -18,6 +17,14 @@ saves one first. Examples::
     python -m skillful_nowcasting_tpu_torch.run --synthetic --synthetic-kind radar-device \\
         --batch-size 2 --max-steps 1000 --compute-dtype bfloat16 --r1-gamma 10
     python -m skillful_nowcasting_tpu_torch.run --nimrod-parquet data/*.parquet --ckpt-dir ckpts
+
+Data parallelism: launch one process per card with ``torchrun``, e.g.
+``torchrun --nproc-per-node 4 -m skillful_nowcasting_tpu_torch.run ...``.
+``--batch-size`` stays the global batch (each rank takes ``batch / ranks``
+rows, and must get a whole number), each rank streams its own shard of the
+data, ``--dp-mode`` picks the step's semantics (:mod:`.parallel.dp`) and
+only rank 0 writes checkpoints and logs. NCCL needs a card per rank;
+``--dist-backend gloo --device cuda:0`` runs several ranks on one card.
 """
 
 from __future__ import annotations
@@ -84,6 +91,14 @@ def parse_args(argv=None):
                    help="R1 gradient penalty weight on D's real scores (0 = reference-exact)")
     p.add_argument("--no-abort-on-nan", action="store_true",
                    help="keep training through non-finite logged metrics")
+    p.add_argument("--dp-mode", choices=["shard_map", "pjit"], default="shard_map",
+                   help="data-parallel step (parallel/dp.py): shard_map = DDP semantics (per-rank "
+                        "draws and BatchNorm statistics); pjit = the global batch's step "
+                        "(synchronised BatchNorm, shared draws)")
+    p.add_argument("--mesh-space", type=int, default=1,
+                   help="ranks along the mesh's space axis (spatial_axis; not ported: > 1 raises)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend under torchrun (default: nccl on CUDA)")
     args = p.parse_args(argv)
     sources = [args.synthetic, bool(args.nimrod_parquet), bool(args.mrms_npy),
                bool(args.dataset_name)]
@@ -93,8 +108,13 @@ def parse_args(argv=None):
     return args
 
 
-def data_iterators(args, device):
-    """(train, validation) iterators of NTCHW batches for the chosen source."""
+def data_iterators(args, device, rank: int = 0, ranks: int = 1):
+    """(train, validation) iterators of this rank's NTCHW batches for the chosen source.
+
+    Each of ``ranks`` ranks takes ``args.batch_size / ranks`` rows a batch.
+    Synthetic data and MRMS crops are seeded per rank; Nimrod streams are
+    sharded by ``torch.distributed``'s rank (:mod:`.data`).
+    """
     import numpy as np
 
     from .data import (
@@ -105,17 +125,20 @@ def data_iterators(args, device):
         synthetic_radar_batches_device,
     )
 
-    common = dict(batch_size=args.batch_size, target_frames=args.forecast_steps,
-                  size=args.output_shape)
+    if args.batch_size % ranks:
+        raise ValueError(f"--batch-size {args.batch_size} does not divide over {ranks} ranks")
+    batch = args.batch_size // ranks
+    seed = args.seed + 7919 * rank  # MRMSSequences' per-process offset
+    common = dict(batch_size=batch, target_frames=args.forecast_steps, size=args.output_shape)
     if args.synthetic:
         if args.synthetic_kind == "radar-device":
-            return (synthetic_radar_batches_device(seed=args.seed, device=device, **common),
-                    synthetic_radar_batches_device(seed=args.seed + 1, device=device, **common))
+            return (synthetic_radar_batches_device(seed=seed, device=device, **common),
+                    synthetic_radar_batches_device(seed=seed + 1, device=device, **common))
         gen = synthetic_batches if args.synthetic_kind == "noise" else synthetic_radar_batches
-        return gen(seed=args.seed, **common), gen(seed=args.seed + 1, **common)
+        return gen(seed=seed, **common), gen(seed=seed + 1, **common)
     if args.mrms_npy:
         array = np.load(args.mrms_npy, mmap_mode="r")
-        kw = dict(batch_size=args.batch_size, crop=args.output_shape,
+        kw = dict(batch_size=batch, crop=args.output_shape,
                   num_target_frames=args.forecast_steps)
         return (iter(MRMSSequences(array, seed=args.seed, **kw)),
                 iter(MRMSSequences(array, seed=args.seed + 10_000, **kw)))
@@ -124,7 +147,7 @@ def data_iterators(args, device):
             "data_files": {"train": args.nimrod_parquet, "validation": args.nimrod_parquet}})
     else:
         stream = dict(dataset_name=args.dataset_name)
-    dm = DGMRDataModule(batch_size=args.batch_size, num_target_frames=args.forecast_steps,
+    dm = DGMRDataModule(batch_size=batch, num_target_frames=args.forecast_steps,
                         seed=args.seed, **stream)
     return dm.train_dataloader(), dm.val_dataloader()
 
@@ -134,14 +157,19 @@ def main(argv=None):
     import torch
 
     from . import DGMR
+    from .parallel import init_distributed, make_mesh
     from .trainer import Trainer
 
+    init_distributed(args.dist_backend)
+    mesh = make_mesh(n_space=args.mesh_space,
+                     device=None if args.device == "cuda" else args.device)
+    print(f"mesh: {mesh.shape} rank {mesh.rank} on {mesh.device}", file=sys.stderr)
     model = DGMR(
         forecast_steps=args.forecast_steps, output_shape=args.output_shape,
         generation_steps=args.generation_steps, latent_channels=args.latent_channels,
-        context_channels=args.context_channels, visualize=args.visualize, device=args.device,
+        context_channels=args.context_channels, visualize=args.visualize, device=mesh.device,
     )
-    train_iter, val_iter = data_iterators(args, next(model.parameters()).device)
+    train_iter, val_iter = data_iterators(args, mesh.device, mesh.data_rank, mesh.shape["data"])
     bf16 = {"float32": None, "bfloat16": torch.bfloat16}
     trainer = Trainer(
         model,
@@ -154,6 +182,7 @@ def main(argv=None):
         compute_dtype=bf16[args.compute_dtype], rollout_remat=args.remat == "rollout",
         g_lr_schedule=args.g_lr_schedule, d_lr_schedule=args.d_lr_schedule,
         r1_gamma=args.r1_gamma, abort_on_nan=not args.no_abort_on_nan,
+        mesh=mesh, dp_mode=args.dp_mode, spatial_axis="space" if args.mesh_space > 1 else None,
     )
     init_state = None
     if args.resume_lightning:

@@ -1,20 +1,27 @@
 """Trainer: the fit loop of the port (counterpart of ``skillful_nowcasting_tpu/trainer.py``).
 
-Replaces Lightning's fit loop for the DGMR GAN on one device: the train
-step, periodic validation (the eval step, and the paper's skill metrics
-with ``val_skill``), checkpoints to ``latest/`` and ``best/`` (best on
+Replaces Lightning's fit loop for the DGMR GAN: the train step, periodic
+validation (the eval step, and the paper's skill metrics with
+``val_skill``), checkpoints to ``latest/`` and ``best/`` (best on
 ``train/g_loss``, as the reference's ``ModelCheckpoint``), a checkpoint on
 SIGTERM or Ctrl-C, refusal of a non-finite resume, an abort on non-finite
 metrics, and metrics to stdout, JSONL and, where they import, TensorBoard
 and wandb.
-Data parallelism (``mesh``, ``dp_mode``, ``spatial_axis`` in JAX) is not
-ported yet.
+
+Data parallelism (``mesh``, ``dp_mode``; :mod:`.parallel`): on a mesh of
+more than one rank every rank runs ``fit`` with its own stream of batches
+(its rows of the global batch), the step averages the gradients, and the
+ranks start from rank 0's weights. Only rank 0 writes checkpoints and logs;
+every rank restores. A SIGTERM on any rank stops every rank after the same
+step: the flag is all-reduced at each step's end. ``spatial_axis`` is not
+ported.
 
 Randomness: the train steps draw their latents and frame indices from one
-CPU ``torch.Generator`` seeded with ``seed``, whose state is part of every
-checkpoint, so a resumed run draws what an uninterrupted one would.
-Validation never touches it: its batch ``i`` at step ``s`` draws from a
-generator seeded with ``(seed, s, i)``.
+CPU ``torch.Generator`` seeded with ``seed`` (on a mesh, the shard_map step
+derives each rank's draws from it). Every rank's generator state is part of
+every checkpoint and each rank restores its own, so a resumed run draws what
+an uninterrupted one would. Validation never touches it: its batch ``i`` at
+step ``s`` draws from a generator seeded with ``(seed, s, i)``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 
 from .checkpoint import DEFAULT_MONITOR, make_manager, restore_state, save_state
 from .logging_utils import MetricsLogger
-from .training import TrainState, _mode, init_train_state, make_eval_step, make_train_step
+from .parallel import gather_rows, make_dp_eval_step, make_dp_train_step, make_mesh, replicate
+from .training import TrainState, _average, _mode, init_train_state
 
 
 def _host_scalars(metrics: dict) -> dict:
@@ -50,6 +58,15 @@ def _seeded(*parts: int) -> torch.Generator:
 def _all_finite(tensors) -> bool:
     """One reduction on the device, one fetch to the host."""
     return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all().item())
+
+
+class _Quiet:
+    """The logger of every rank but 0: it writes nothing."""
+
+    def log_scalars(self, *_):
+        pass
+
+    log_histograms = log_video_frames = flush = log_scalars
 
 
 class Trainer:
@@ -81,9 +98,15 @@ class Trainer:
         d_lr_schedule: Optional[str] = None,
         r1_gamma: float = 0.0,
         abort_on_nan: bool = True,
+        mesh=None,
+        dp_mode: str = "shard_map",
+        spatial_axis=None,
     ):
         self.model = model
         self.device = next(model.parameters()).device
+        # The whole world of torch.distributed by default (this process alone without it).
+        self.mesh = mesh if mesh is not None else make_mesh(device=self.device)
+        self.rank = self.mesh.rank
         self.max_steps = max_steps
         self.val_every = val_every
         self.val_batches = val_batches
@@ -104,19 +127,21 @@ class Trainer:
         # Abort, without writing the blown-up state, when a logged metric is not finite.
         self.abort_on_nan = abort_on_nan
         self.g_lr_schedule, self.d_lr_schedule = g_lr_schedule, d_lr_schedule
-        self.train_step = make_train_step(
-            model, logging_forward=logging_forward, watch_gradients=watch_gradients,
+        self.train_step = make_dp_train_step(
+            model, self.mesh, mode=dp_mode, spatial_axis=spatial_axis,
+            logging_forward=logging_forward, watch_gradients=watch_gradients,
             watch_histograms=watch_histograms, compute_dtype=compute_dtype,
             rollout_remat=rollout_remat, r1_gamma=r1_gamma,
         )
-        self.eval_step = make_eval_step(model, compute_dtype=compute_dtype)
+        self.eval_step = make_dp_eval_step(model, self.mesh, mode=dp_mode,
+                                           compute_dtype=compute_dtype, spatial_axis=spatial_axis)
         self.skill_metrics = None
         if val_skill:
             from .inference import make_skill_metrics
 
             with _mode(model, False):
                 self.skill_metrics = make_skill_metrics(model, dtype=compute_dtype)
-        self.logger = MetricsLogger(log_dir, use_wandb=use_wandb)
+        self.logger = MetricsLogger(log_dir, use_wandb=use_wandb) if self.rank == 0 else _Quiet()
         self.manager = make_manager(f"{ckpt_dir}/latest") if ckpt_dir else None
         self.best_manager = (
             make_manager(f"{ckpt_dir}/best", max_to_keep=1, monitor=DEFAULT_MONITOR)
@@ -124,6 +149,7 @@ class Trainer:
         )
         self._sigterm_pending = False
         self._in_step = False
+        self._saved_step = None  # the step of the newest checkpoint, the same on every rank
 
     def _to_device(self, batch):
         return tuple(torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor) else b)
@@ -137,9 +163,10 @@ class Trainer:
         ends, and the emergency checkpoint holds whole steps, labelled with
         the number completed. Anything else that stops the train step itself
         partway (Ctrl-C, an out-of-memory error) leaves D a step ahead of G:
-        then no emergency checkpoint is written.
+        then no emergency checkpoint is written. On a mesh the signal is always
+        held to the step's end, where the ranks agree to stop.
         """
-        if self._in_step:
+        if self._in_step or self.mesh.size > 1:
             self._sigterm_pending = True
             return
         raise KeyboardInterrupt("SIGTERM (preemption)")
@@ -155,7 +182,8 @@ class Trainer:
         """Run the GAN loop from ``state.step`` to ``max_steps``; returns the state.
 
         ``train_iter`` / ``val_iter`` yield NTCHW ``(images, future_images)``
-        numpy arrays or tensors (:mod:`.data`). One batch is drawn before the
+        numpy arrays or tensors (:mod:`.data`); on a mesh, this rank's rows of
+        each global batch. One batch is drawn before the
         loop, as the JAX Trainer draws its init batch, so an iterator feeds
         the same batches to the same steps in both. ``init_state`` starts from
         a given state (e.g. :func:`~.hub.train_state_from_lightning`); a
@@ -176,14 +204,17 @@ class Trainer:
             else:
                 state = init_train_state(self.model, g_lr_schedule=self.g_lr_schedule,
                                          d_lr_schedule=self.d_lr_schedule)
-            if self.manager is not None and resume and self.manager.latest_step() is not None:
-                restore_state(self.manager, state, generator)
+            self._saved_step = self.manager.latest_step() if self.manager is not None else None
+            if self.manager is not None and resume and self._saved_step is not None:
+                restore_state(self.manager, state, generator, rank=self.rank,
+                              world=self.mesh.size)
                 # A checkpoint written after a blow-up would poison every later step.
                 if not _all_finite(list(state.model.parameters())):
                     raise RuntimeError(
                         f"refusing to resume from step {state.step}: checkpoint params contain "
                         f"non-finite values; delete or repair {self.manager.directory}")
                 print(f"resumed from step {state.step}", file=sys.stderr)
+            replicate(state.model, self.mesh)  # every rank starts from rank 0's weights
             return self._loop(state, train_iter, val_iter, generator)
         finally:
             if staged is not None:
@@ -234,11 +265,11 @@ class Trainer:
 
                     if self.manager is not None and (step + 1) % self.ckpt_every == 0:
                         self._save(state, generator, metrics)
-                        if self.on_checkpoint is not None:
+                        if self.on_checkpoint is not None and self.rank == 0:
                             self.on_checkpoint(step + 1, self.manager.directory)
                 finally:
                     self._in_step = False
-                if self._sigterm_pending:
+                if self._any_rank(self._sigterm_pending):
                     self._sigterm_pending = False
                     raise KeyboardInterrupt("SIGTERM (preemption)")
         except KeyboardInterrupt:
@@ -250,7 +281,7 @@ class Trainer:
             if torn:
                 print(f"the train step after step {state.step} stopped partway: no emergency "
                       "checkpoint", file=sys.stderr)
-            elif self.manager is not None and metrics and self.manager.latest_step() != state.step:
+            elif self.manager is not None and metrics and self._saved_step != state.step:
                 print(f"saving checkpoint at step {state.step}", file=sys.stderr)
                 self._save(state, generator, metrics)
             self.logger.flush()
@@ -258,10 +289,29 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev_handler)
         return state
 
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the mesh (one all-reduce on a mesh of more than one)."""
+        if self.mesh.size == 1:
+            return flag
+        import torch.distributed as dist
+
+        t = torch.tensor([float(flag)], device=self.mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return bool(t.item())
+
     def _save(self, state: TrainState, generator: torch.Generator, metrics: dict) -> None:
-        scalars = _host_scalars(metrics)
-        save_state(self.manager, state.step, state, generator, scalars)
-        save_state(self.best_manager, state.step, state, generator, scalars)
+        """Every rank's generator state is gathered (a collective); rank 0 writes the checkpoint."""
+        ranks = None
+        if self.mesh.size > 1:
+            mine = generator.get_state().to(self.mesh.device)
+            ranks = list(gather_rows(mine, self.mesh.group).cpu())
+        if self.rank == 0:
+            scalars = _host_scalars(metrics)
+            save_state(self.manager, state.step, state, generator, scalars,
+                       rank_generators=ranks)
+            save_state(self.best_manager, state.step, state, generator, scalars,
+                       rank_generators=ranks)
+        self._saved_step = state.step
 
     def _validate(self, state: TrainState, val_iter: Iterator, step: int) -> None:
         """The eval step (and the skill metrics) over ``val_batches`` batches, averaged and logged."""
@@ -272,6 +322,8 @@ class Trainer:
             if self.skill_metrics is not None:
                 with _mode(self.model, False):
                     sm = self.skill_metrics(images, future, _seeded(self.seed, step, 1000 + i))
+                sm = {k: v.clone() for k, v in sm.items()}  # out of inference mode
+                _average(sm.values(), self.mesh.data_group)
                 m.update({f"val/{k}": v for k, v in sm.items()})
             for k, v in _host_scalars(m).items():
                 accum[k] = accum.get(k, 0.0) + v / self.val_batches

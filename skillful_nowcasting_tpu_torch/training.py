@@ -26,8 +26,18 @@ discriminator call). Opt-in, as in JAX: the R1 penalty on both D updates
 (``r1_gamma``), mixed precision (``compute_dtype=torch.bfloat16``: bf16
 inputs to every conv and matmul, f32 parameters, moments, gradients and
 BN/SN state), and per-layer gradient norms and histograms
-(``watch_gradients`` / ``watch_histograms``). Not ported yet: ``axis_name``
-(data parallelism).
+(``watch_gradients`` / ``watch_histograms``).
+
+Data parallelism (JAX's ``axis_name``; see :mod:`.parallel.dp`): with a
+process ``group`` every rank runs the step on its own rows of the batch and
+the gradients are averaged over the group with one flat all-reduce after
+each of the three ``_grads`` (the step never calls ``.backward()``, so
+``DistributedDataParallel``'s hooks would never fire). By default each rank
+draws its own latents and frames and keeps its own BatchNorm statistics,
+and every floating BN/SN buffer is averaged at the step's end (torch-DDP
+semantics, JAX's ``shard_map`` mode). ``global_batch=True`` is the
+single-card step on the global batch (JAX's ``pjit`` mode): the same draws
+on every rank and train-mode BatchNorm synchronised over the group.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.optim.lr_scheduler import LambdaLR
@@ -47,6 +58,7 @@ from .logging_utils import HIST_BINS, HIST_Y_MAX
 from .losses import GridCellLoss, loss_hinge_disc, loss_hinge_gen, weight_fn
 from .models.common import draw_latents
 from .models.discriminators import draw_frames
+from .ops.norm import sync_batch_norm
 
 N_DISC_STEPS = 2
 
@@ -352,6 +364,49 @@ def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.pow(2).sum() for g in grads.values()))
 
 
+def _check_group(model, group) -> None:
+    """An NCCL group takes CUDA tensors only: a CPU model on one raises here, not in NCCL."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl" and next(model.parameters()).device.type != "cuda":
+        raise ValueError("a model on the CPU cannot run on an NCCL group")
+
+
+def rank_generator(generator: Optional[torch.Generator], group) -> torch.Generator:
+    """This rank's generator for one step: JAX's ``fold_in(rng, axis_index)``.
+
+    Draws one integer from ``generator`` (the same on every rank that holds
+    the same generator) and seeds a new generator on its device from that
+    integer and the rank in ``group``.
+    """
+    import torch.distributed as dist
+
+    device = generator.device if generator is not None else torch.device("cpu")
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=generator, device=device))
+    mixed = np.random.SeedSequence([seed, dist.get_rank(group)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def _global_batch_scale(group, global_batch: bool) -> int:
+    """The grid loss sums over the batch (quirk Q3): on the global batch it is the ranks' sum, so
+    each rank's term counts ``n`` times before the average over ``n`` ranks."""
+    if group is None or not global_batch:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def _average(tensors, group) -> None:
+    """Average ``tensors`` over ``group`` in place (one flat all-reduce per dtype); no-op without one."""
+    if group is not None:
+        from .parallel.mesh import all_reduce_mean_
+
+        all_reduce_mean_(list(tensors), group)
+
+
 @contextlib.contextmanager
 def _mode(model, training: bool):
     """Run the block with ``model`` in train (or eval) mode, and restore its mode after."""
@@ -387,6 +442,8 @@ def make_train_step(
     return_grads: bool = False,
     rollout_remat: bool = True,
     r1_gamma: float = 0.0,
+    group=None,
+    global_batch: bool = False,
 ):
     """Build ``train_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
@@ -411,20 +468,45 @@ def make_train_step(
     symlog histogram (:func:`_histogram`) of the post-step parameters, the
     G gradients and the last D step's gradients. Keys follow the JAX step's
     param-tree paths.
+
+    ``group`` (a ``torch.distributed`` process group; JAX's ``axis_name``)
+    makes the step data-parallel over the group's ranks, each passing its own
+    rows of the batch. The gradients are averaged after each of the three
+    updates' backward passes (one flat all-reduce each), so the norms, the
+    watched gradients and ``return_grads`` are the averaged ones; the six
+    ``train/*`` losses and ``train/d_r1`` are averaged at the end. Without
+    explicit ``draws`` each rank draws from :func:`rank_generator` of
+    ``generator``; each rank normalizes with its own BatchNorm statistics,
+    and every floating BN/SN buffer is averaged over the group at the step's
+    end (no renormalisation of ``u`` / ``v``), as JAX's ``shard_map`` mode
+    does. ``global_batch=True`` is JAX's ``pjit`` mode, the single-card step
+    on the global batch: every rank draws from ``generator`` itself (pass
+    the same one), train-mode BatchNorm is synchronised over the group
+    (:func:`~.ops.norm.sync_batch_norm`), and the buffers stay equal with
+    no averaging. The grid loss, a sum over the batch, counts ``n`` times on
+    each of the ``n`` ranks, so with equal local batches the averaged losses
+    and gradient are the global batch's. Every rank must call the step the
+    same way.
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
     n_gen = model.generation_steps
     compute_dtype = _compute_dtype(model, compute_dtype)
+    _check_group(model, group)
+    grid_scale = _global_batch_scale(group, global_batch)
+    per_rank = group is not None and not global_batch
 
     def train_step(state: TrainState, images, future_images, generator=None, draws=None):
         mdl = state.model
         images, future_images, real_seq, real_seq_c = _batches(
             mdl, images, future_images, compute_dtype)
         if draws is None:
+            if per_rank:
+                generator = rank_generator(generator, group)
             draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward)
         b = images.shape[0]
         g_params, d_params = split_params(mdl)
-        with _mode(mdl, True):
+        sync = sync_batch_norm(mdl, group if global_batch else None)
+        with sync, _mode(mdl, True):
             d_losses, d_grads, d_r1 = [], [], []
             for z, frames in zip(draws.d_z, draws.d_frames):
                 with torch.no_grad():
@@ -438,6 +520,7 @@ def make_train_step(
                     loss = loss + r1_gamma * r1
                     d_r1.append(r1.detach())
                 grads = _grads(loss, d_params)
+                _average(grads.values(), group)
                 _apply(state.d_opt, state.d_sched, d_params, grads)
                 d_losses.append(loss.detach())
                 d_grads.append(grads)
@@ -458,15 +541,20 @@ def make_train_step(
                 gen_scores.append(mdl.discriminate(concat, frame_indices=frames)[b:])
                 sum_preds = sum_preds + _at_least_f32(preds)
             grid = grid_loss(sum_preds / n_gen, future_images)
+            if grid_scale != 1:
+                grid = grid * grid_scale
             g_disc_loss = loss_hinge_gen(_at_least_f32(torch.stack(gen_scores)))
             g_loss = g_disc_loss + mdl.grid_lambda * grid
             g_grads = _grads(g_loss, g_params)
+            _average(g_grads.values(), group)
             _apply(state.g_opt, state.g_sched, g_params, g_grads)
 
             generated = None
             if logging_forward:
                 with torch.no_grad():
                     generated = mdl(images, z=draws.log_z)
+        if per_rank:  # replica-consistent state
+            _average([t for t in mdl.buffers() if t.is_floating_point()], group)
         state.step += 1
 
         metrics = {
@@ -479,6 +567,8 @@ def make_train_step(
         }
         if r1_gamma > 0.0:
             metrics["train/d_r1"] = d_r1[-1]
+        # The losses, not the norms: those of the averaged gradients are equal on every rank.
+        _average([v for k, v in metrics.items() if not k.endswith("grad_norm")], group)
         if watch_gradients:
             metrics.update(_layer_grad_norms(mdl, g_grads, "train/grad_norm/"))
             metrics.update(_layer_grad_norms(
@@ -501,7 +591,8 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None):
+def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None, group=None,
+                   global_batch: bool = False):
     """Build ``eval_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
     The validation step (``training.py:731-802`` in JAX): the same losses
@@ -511,10 +602,14 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None):
     ``generation_steps`` samples for the grid loss and the generator hinge.
     ``compute_dtype`` as in :func:`make_train_step`: a bf16 step runs the
     kernels' bf16 variants; the mean of the samples and the losses are at
-    least f32.
+    least f32. ``group`` and ``global_batch`` as in :func:`make_train_step`:
+    per-rank draws (or, with ``global_batch``, the same draws on every rank)
+    and the metrics averaged over the group.
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
     compute_dtype = _compute_dtype(model, compute_dtype)
+    _check_group(model, group)
+    grid_scale = _global_batch_scale(group, global_batch)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, future_images, generator=None, draws=None):
@@ -522,6 +617,8 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None):
         images, future_images, real_seq, real_seq_c = _batches(
             mdl, images, future_images, compute_dtype)
         if draws is None:
+            if group is not None and not global_batch:
+                generator = rank_generator(generator, group)
             draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward=False)
         b = images.shape[0]
 
@@ -537,13 +634,17 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None):
                 d_losses.append(loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt))
             preds, scores = zip(*(score(z, f) for z, f in zip(draws.g_z, draws.g_frames)))
         grid = grid_loss(_at_least_f32(torch.stack(preds)).mean(dim=0), future_images)
+        if grid_scale != 1:
+            grid = grid * grid_scale
         gen_scores = _at_least_f32(torch.stack([s[b:] for s in scores]))
         g_loss = loss_hinge_gen(gen_scores) + mdl.grid_lambda * grid
-        return {
+        metrics = {
             "val/d_loss": d_losses[-1],
             "val/g_loss": g_loss,
             "val/grid_loss": grid,
             "val/d_loss_first": d_losses[0],
         }
+        _average(metrics.values(), group)
+        return metrics
 
     return eval_step

@@ -438,3 +438,44 @@ def test_r1_step_on_card_matches_cpu(dev):
     for k, want in host.items():
         err = (card[k] - want).abs().max().item()
         assert err <= 1e-3 * max(want.abs().max().item(), 1e-6 * top), (k, err)
+
+
+def test_mesh_of_one_on_the_card_is_the_plain_step(dev):
+    """make_mesh() defaults to this rank's card; a mesh of one trains with the plain step."""
+    from skillful_nowcasting_tpu_torch.parallel import make_dp_train_step, make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == 1 and mesh.device.type == "cuda" and mesh.group is None
+    state, x, y = tiny_train_state(dev)
+    step = make_dp_train_step(state.model, mesh, mode="pjit")
+    assert step.__qualname__ == "make_train_step.<locals>.train_step"
+    metrics = step(state, x, y, torch.Generator().manual_seed(3))
+    assert state.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_nccl_world_of_one(dev, monkeypatch):
+    """init_distributed over NCCL from a launcher's environment: one all-reduce; a CPU model refused."""
+    import socket
+
+    import torch.distributed as dist
+
+    from skillful_nowcasting_tpu_torch.parallel import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert init_distributed() == 1
+    try:
+        assert dist.get_backend() == "nccl"
+        buf = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+        want = buf.clone()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want)
+        with pytest.raises(ValueError, match="NCCL"):
+            training.make_train_step(DGMR(**TINY, device="cpu"), group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()

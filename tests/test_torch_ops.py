@@ -168,6 +168,9 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.data.crops, skillful_nowcasting_tpu_torch.data.synthetic\n"
         "import skillful_nowcasting_tpu_torch.data.nimrod, skillful_nowcasting_tpu_torch.data.mrms\n"
         "import skillful_nowcasting_tpu_torch.data.prefetch\n"
+        "import skillful_nowcasting_tpu_torch.parallel, skillful_nowcasting_tpu_torch.parallel.mesh\n"
+        "import skillful_nowcasting_tpu_torch.parallel.dp\n"
+        "import skillful_nowcasting_tpu_torch.parallel.spatial\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"

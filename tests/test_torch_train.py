@@ -21,32 +21,36 @@ BatchNorm has a true gradient of 0, so each tensor's max-abs is floored at
 test run, whatever the number of xdist workers (``run_once``).
 """
 
-import threading
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 
-from skillful_nowcasting_tpu import DGMR as JaxDGMR
 from skillful_nowcasting_tpu import losses as jlosses
 from skillful_nowcasting_tpu import training as jtraining
-from skillful_nowcasting_tpu.hub.pretrained import abstract_variables
-from skillful_nowcasting_tpu.utils import random_fill_variables
 from skillful_nowcasting_tpu_torch import DGMR, losses, training
 from skillful_nowcasting_tpu_torch.hub import load_variables, state_dict_from_variables
-from torch_port_helpers import f64, perturb, run_once, t
+from torch_port_helpers import (
+    TRAIN_KEY,
+    TRAIN_LR,
+    TRAIN_TINY,
+    assert_trees_close,
+    f64,
+    jax_train_step_start,
+    recovered_draws,
+    run_once,
+    step_draws,
+    t,
+    train_setup,
+    tree_to_torch,
+)
 
 torch.set_num_threads(1)
 
-TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
-            generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
-LR = (5e-5, 2e-4)  # SGD for G, D
+TINY = TRAIN_TINY
+LR = TRAIN_LR  # SGD for G, D
 METRIC_RTOL = 1e-4
-TREE_TOL = 1e-3
-FLOOR = 1e-6
 
 
 def port_model(variables, dtype=torch.float32):
@@ -62,103 +66,26 @@ def sgd_state(model):
     )
 
 
-def recovered_draws(jmodel, variables, keys_z, keys_frames, seq_len, dtype):
-    """The latents and frame indices the JAX step draws from these keys, as port tensors."""
-
-    def latent(mdl):
-        c, h, w = mdl.latent_stack.shape
-        return jax.random.normal(mdl.latent_stack.make_rng("latent"), (1, h, w, c), jnp.float32)
-
-    def frames(mdl):
-        key = mdl.discriminator.spatial_discriminator.make_rng("frames")
-        return jax.random.randint(key, (8,), 0, seq_len)
-
-    def apply(method, stream, key):
-        return np.array(jmodel.apply(variables, method=method, rngs={stream: key}))
-
-    zs = [t(np.moveaxis(apply(latent, "latent", k), -1, 1)).to(dtype) for k in keys_z]
-    fr = [t(apply(frames, "frames", k)).long() for k in keys_frames]
-    return zs, fr
-
-
-def tree_to_torch(tree, spectral):
-    """A params-shaped JAX tree (gradients or parameters) under the port's parameter names."""
-    sd = state_dict_from_variables({"params": tree, "spectral": spectral})
-    return {k: v for k, v in sd.items() if not k.endswith(("._u", "._v"))}
-
-
-def assert_trees_close(got, want, tol=TREE_TOL):
-    """max|got - want| <= tol * max(max|want|, FLOOR * the group's largest |want|), per tensor."""
-    assert set(got) == set(want)
-    group = max(float(np.abs(np.array(w)).max()) for w in want.values() if np.size(w))
-    worst = (0.0, "")
-    for k, w in want.items():
-        w = np.array(w, np.float64)
-        if not np.size(w) or not np.issubdtype(w.dtype, np.floating):
-            continue
-        err = np.abs(np.array(got[k].detach(), np.float64) - w).max()
-        worst = max(worst, (err / max(np.abs(w).max(), FLOOR * group), k))
-    assert worst[0] <= tol, worst
-
-
 @pytest.fixture(scope="module")
 def setup():
     """The JAX model, its perturbed tree before and after desaturation, and a batch."""
-    jmodel = JaxDGMR(**TINY)
-    filled = jax.tree.map(np.array, random_fill_variables(abstract_variables(jmodel), 0))
-    saturated = perturb(filled, 1)
-    variables = dict(saturated, params=jax.tree.map(
-        np.array, jtraining.desaturate_discriminator(saturated["params"])))
-    rng = np.random.default_rng(2)
-    x = rng.random((2, 4, 64, 64, 1), np.float32)
-    y = rng.random((2, 2, 64, 64, 1), np.float32)
-    return jmodel, variables, x, y, saturated
+    return train_setup()
 
 
 @pytest.fixture(scope="module")
 def steps(setup, tmp_path_factory):
     """One JAX train step and the port's (rollout recompute on and off), all float64.
 
-    The JAX step is compiled once per test run (``run_once``): the first
-    xdist worker compiles and runs it, XLA compiling outside the interpreter
-    lock while the port's steps run, and writes its outputs to a file that
-    every other worker loads. The port's steps run on every worker.
+    The JAX step is compiled once per test run (``run_once``; the parallel
+    tests share it): the first xdist worker compiles and runs it, XLA
+    compiling outside the interpreter lock while the port's steps run, and
+    writes its outputs to a file that every other worker loads. The port's
+    steps run on every worker.
     """
     jmodel, variables, x, y, _ = setup
-    key = jax.random.key(7)
-    n = TINY["generation_steps"]
     with jax.enable_x64(True):
-        v64 = f64(variables)
-        args = (None, x.astype(np.float64), y.astype(np.float64), key)
-        # The step's key order (training.py:450-455): d_lat, d_fr, g_lat, g_fr, log.
-        keys = jax.random.split(key, 2 * 2 + 2 * n + 1)
-        zs, fr = recovered_draws(jmodel, v64, [*keys[:2], *keys[4:4 + n]],
-                                 [*keys[2:4], *keys[4 + n:4 + 2 * n]], 6, torch.float64)
-    draws = training.StepDraws(d_z=zs[:2], d_frames=fr[:2], g_z=zs[2:], g_frames=fr[2:])
-
-    def start():
-        with jax.enable_x64(True):
-            sgd = (optax.sgd(LR[0]), optax.sgd(LR[1]))
-            g0, d0 = jtraining.split_params(v64["params"])
-            state = jtraining.TrainState(
-                params=v64["params"], batch_stats=v64["batch_stats"], spectral=v64["spectral"],
-                g_opt_state=sgd[0].init(g0), d_opt_state=sgd[1].init(d0),
-                step=jnp.zeros((), jnp.int32),
-            )
-            step = jax.jit(jtraining.make_train_step(
-                jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
-                compute_dtype=jnp.float64))
-            full = (state, *args[1:])
-            lowered, compiled = step.lower(*full), []
-        compiling = threading.Thread(target=lambda: compiled.append(lowered.compile()))
-        compiling.start()
-
-        def finish():
-            compiling.join()
-            with jax.enable_x64(True):
-                return jax.tree.map(np.array, compiled[0](*full))
-
-        return finish
+        draws = training.StepDraws(**step_draws(
+            jmodel, f64(variables), jax.random.key(TRAIN_KEY), TINY["generation_steps"]))
 
     def port_steps():
         got = {}
@@ -172,7 +99,8 @@ def steps(setup, tmp_path_factory):
             got[remat] = (model, metrics_t)
         return got
 
-    return run_once(tmp_path_factory, "test_torch_train_jax_step", start, port_steps)
+    return run_once(tmp_path_factory, "test_torch_train_jax_step", jax_train_step_start(setup),
+                    port_steps)
 
 
 def test_train_step_metrics_match_jax(steps):

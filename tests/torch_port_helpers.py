@@ -156,3 +156,149 @@ def jax_latents(jmodel, variables, keys) -> np.ndarray:
 
     zs = [np.array(jmodel.apply(variables, method=latent, rngs={"latent": k})) for k in keys]
     return np.moveaxis(np.concatenate(zs), -1, 1)
+
+
+# The train-step parity config shared by test_torch_train.py and test_torch_parallel.py.
+TRAIN_TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
+                  generation_steps=2, num_spatial_layers=2, num_temporal_layers=2)
+TRAIN_LR = (5e-5, 2e-4)  # SGD for G, D
+TRAIN_KEY = 7  # the JAX train step's key
+
+
+def train_setup():
+    """The JAX model, its perturbed tree after and before desaturation, and a B=2 batch (NTHWC)."""
+    from skillful_nowcasting_tpu import DGMR as JaxDGMR
+    from skillful_nowcasting_tpu import training as jtraining
+    from skillful_nowcasting_tpu.hub.pretrained import abstract_variables
+
+    jmodel = JaxDGMR(**TRAIN_TINY)
+    filled = jax.tree.map(np.array, random_fill_variables(abstract_variables(jmodel), 0))
+    saturated = perturb(filled, 1)
+    variables = dict(saturated, params=jax.tree.map(
+        np.array, jtraining.desaturate_discriminator(saturated["params"])))
+    rng = np.random.default_rng(2)
+    x = rng.random((2, 4, 64, 64, 1), np.float32)
+    y = rng.random((2, 2, 64, 64, 1), np.float32)
+    return jmodel, variables, x, y, saturated
+
+
+def recovered_draws(jmodel, variables, keys_z, keys_frames, seq_len, dtype):
+    """The latents and frame indices the JAX step draws from these keys, as port tensors."""
+    import jax.numpy as jnp
+
+    def latent(mdl):
+        c, h, w = mdl.latent_stack.shape
+        return jax.random.normal(mdl.latent_stack.make_rng("latent"), (1, h, w, c), jnp.float32)
+
+    def frames(mdl):
+        key = mdl.discriminator.spatial_discriminator.make_rng("frames")
+        return jax.random.randint(key, (8,), 0, seq_len)
+
+    def apply(method, stream, key):
+        return np.array(jmodel.apply(variables, method=method, rngs={stream: key}))
+
+    zs = [t(np.moveaxis(apply(latent, "latent", k), -1, 1)).to(dtype) for k in keys_z]
+    fr = [t(apply(frames, "frames", k)).long() for k in keys_frames]
+    return zs, fr
+
+
+def step_draws(jmodel, variables, key, n_gen: int, dtype=torch.float64) -> dict:
+    """The draws of the JAX train step (``logging_forward=False``) under ``key``, as ``StepDraws`` fields.
+
+    The step's key order (``training.py:450-455``): d_lat, d_fr, g_lat, g_fr, log.
+    Call under the same ``jax.enable_x64`` setting as the step.
+    """
+    keys = jax.random.split(key, 2 * 2 + 2 * n_gen + 1)
+    zs, fr = recovered_draws(jmodel, variables, [*keys[:2], *keys[4:4 + n_gen]],
+                             [*keys[2:4], *keys[4 + n_gen:4 + 2 * n_gen]], 6, dtype)
+    return dict(d_z=zs[:2], d_frames=fr[:2], g_z=zs[2:], g_frames=fr[2:])
+
+
+def sgd_train_state(jmodel, v64):
+    """A float64 JAX TrainState of ``v64`` with the SGD pair, and that pair."""
+    import jax.numpy as jnp
+    import optax
+
+    from skillful_nowcasting_tpu import training as jtraining
+
+    sgd = (optax.sgd(TRAIN_LR[0]), optax.sgd(TRAIN_LR[1]))
+    g0, d0 = jtraining.split_params(v64["params"])
+    state = jtraining.TrainState(
+        params=v64["params"], batch_stats=v64["batch_stats"], spectral=v64["spectral"],
+        g_opt_state=sgd[0].init(g0), d_opt_state=sgd[1].init(d0),
+        step=jnp.zeros((), jnp.int32),
+    )
+    return state, sgd
+
+
+def compile_in_background(fn, *args, post=lambda out: jax.tree.map(np.array, out)):
+    """Lower ``fn`` (jitted) here under x64 and compile it on a thread; returns ``finish()``.
+
+    ``finish()`` runs the program and returns ``post`` of its outputs (a numpy
+    tree by default). XLA compiles outside the interpreter lock, so the
+    caller's own work runs meanwhile.
+    """
+    import threading
+
+    with jax.enable_x64(True):
+        lowered, compiled = fn.lower(*args), []
+    compiling = threading.Thread(target=lambda: compiled.append(lowered.compile()))
+    compiling.start()
+
+    def finish():
+        compiling.join()
+        with jax.enable_x64(True):
+            return post(compiled[0](*args))
+
+    return finish
+
+
+# Train-step trees compare per tensor: max|got - want| <= TREE_TOL * max(max|want|, FLOOR *
+# the group's largest |want|). A conv bias in front of a train-mode BatchNorm has a true
+# gradient of 0, hence the floor.
+TREE_TOL = 1e-3
+FLOOR = 1e-6
+
+
+def tree_to_torch(tree, spectral):
+    """A params-shaped JAX tree (gradients or parameters) under the port's parameter names."""
+    sd = state_dict_from_variables({"params": tree, "spectral": spectral})
+    return {k: v for k, v in sd.items() if not k.endswith(("._u", "._v"))}
+
+
+def assert_trees_close(got, want, tol=TREE_TOL):
+    """max|got - want| <= tol * max(max|want|, FLOOR * the group's largest |want|), per tensor."""
+    assert set(got) == set(want)
+    group = max(float(np.abs(np.array(w)).max()) for w in want.values() if np.size(w))
+    worst = (0.0, "")
+    for k, w in want.items():
+        w = np.array(w, np.float64)
+        if not np.size(w) or not np.issubdtype(w.dtype, np.floating):
+            continue
+        got_k = got[k].detach() if isinstance(got[k], torch.Tensor) else got[k]
+        err = np.abs(np.array(got_k, np.float64) - w).max()
+        worst = max(worst, (err / max(np.abs(w).max(), FLOOR * group), k))
+    assert worst[0] <= tol, worst
+
+
+def jax_train_step_start(setup):
+    """``start`` of the JAX B=2 float64 SGD train step (``run_once(..., "test_torch_train_jax_step")``).
+
+    Its result is ``(new_state, metrics)`` with ``return_grads``.
+    """
+    import jax.numpy as jnp
+
+    from skillful_nowcasting_tpu import training as jtraining
+
+    jmodel, variables, x, y, _ = setup
+
+    def start():
+        with jax.enable_x64(True):
+            state, sgd = sgd_train_state(jmodel, f64(variables))
+            step = jax.jit(jtraining.make_train_step(
+                jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
+                compute_dtype=jnp.float64))
+        return compile_in_background(step, state, x.astype(np.float64), y.astype(np.float64),
+                                     jax.random.key(TRAIN_KEY))
+
+    return start
