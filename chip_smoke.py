@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining and data-parallel paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel and scoring paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
@@ -121,6 +121,22 @@ the top kernels by device time) and prints no result line.
    of one from a launcher's environment: one all-reduce of a buffer the size
    of the model's gradients and a train step on the mesh of one. Then a
    diagnostic: whether gloo's point-to-point calls take CUDA tensors.
+18. Scoring a full-width nowcast: phase 4's ``DGMR()`` answers one request
+   of B=2 seeded advecting-blob context frames (over 12: fields of about
+   [0, 1]) through ``make_generate`` (4 / 8 launches a forward), and every
+   ported loss scores the S=6 ensemble against the batch's 18 target frames:
+   every ``get_loss`` name, ``ssim`` / ``ms_ssim`` over the 216 nowcast
+   frames (5 levels), ``SSIMLossDynamic`` against the last context frame,
+   ``grid_cell_regularizer`` over the samples, ``GridCellLoss`` of the
+   ensemble mean, ``FocalLoss`` and the NLL names on a seeded rain
+   probability against the target's rain (> 1 mm/h). Each loss on the card
+   equals the same loss of the same tensors on the CPU to <= 1e-5 relative.
+   The gradients of ``MS_SSIMLoss`` and ``SSIMLoss`` w.r.t. the 216 frames,
+   card vs CPU, <= 1e-4 of max-abs, with the seconds and peak memory of each
+   forward + backward. ``CoordConv`` (both ``with_r``, f32 and bf16, eval
+   and one train forward) card vs CPU (<= 1e-5, bf16 <= 2^-7 of max|out|),
+   SN ``u`` / ``v`` advanced by exactly one power iteration in train mode;
+   ``DGMR(conv_type="coord")`` raises ``TypeError``.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -1807,6 +1823,183 @@ def nccl_world_of_one(torch, dev, card, n_params: int) -> None:
                 os.environ[k] = v
 
 
+# ---------------------------------------------------------------------------
+# 18. Scoring a full-width nowcast with every ported loss, card vs CPU; coord conv; its refusal.
+# ---------------------------------------------------------------------------
+LOSS_TOL = 1e-5  # card vs CPU, of the CPU's value (f32, TF32 off)
+LOSS_GRAD_TOL = 1e-4  # card vs CPU, of the CPU gradient's max-abs
+
+
+def score_inputs(torch, dev, model, counters) -> dict:
+    """18a's tensors on the card: the nowcast ensemble of a seeded radar batch and what scores it."""
+    from skillful_nowcasting_tpu_torch.data.synthetic import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.inference import make_generate
+
+    s_n = model.num_samples
+    # Advecting blobs of 2-12 (mm/h), over 12: fields of about [0, 1], SSIM's data_range.
+    ctx, target = next(synthetic_radar_batches_device(batch_size=2, seed=18, device=dev))
+    ctx, target = ctx / 12.0, target / 12.0
+    calls = counted_forwards(model, counters)
+    ens = make_generate(model)(ctx, torch.Generator().manual_seed(180))
+    torch.cuda.synchronize()
+    launches = expect_launches(model, counters, calls, s_n, "score nowcast (S=6, B=2)")
+    ens = ens.clone()  # a normal tensor (make_generate runs in inference mode), for autograd
+    size = model.output_shape
+    if tuple(ens.shape) != (s_n, 2, model.forecast_steps, 1, size, size) or not bool(
+            torch.isfinite(ens).all()):
+        fail(f"score nowcast: shape {tuple(ens.shape)} or non-finite values")
+    # A seeded rain probability (kept off 0 and 1 for the logs) and the target's rain labels.
+    p = 0.01 + 0.98 * torch.rand(target[:, :, 0].shape, generator=torch.Generator().manual_seed(181))
+    probs = torch.stack([1.0 - p, p], 1).to(dev)  # (B, 2, T, H, W): class axis 1
+    rain = (target[:, :, 0] > 1.0 / 12.0).long()  # (B, T, H, W): above 1 mm/h
+    # The 216 nowcast frames (S*B, T, C, H, W), each sample's target and last context frame.
+    frames = ens.flatten(0, 1)
+    truth = target.expand(s_n, *target.shape).flatten(0, 1)
+    curr = ctx[:, -1:]
+    now = curr.expand(s_n, *curr.shape).flatten(0, 1)
+    return {"ens": ens, "target": target, "frames": frames, "truth": truth, "now": now,
+            "probs": probs, "rain": rain, "launches": launches}
+
+
+def loss_table(losses, t: dict) -> dict:
+    """Every ported loss of 18a's tensors (on their device) as a float."""
+    ens, target, frames, truth, now = (t[k] for k in ("ens", "target", "frames", "truth", "now"))
+    mean = ens.mean(dim=0)  # the ensemble mean, (B, T, C, H, W)
+    log_probs = t["probs"].movedim(1, -1).reshape(-1, 2).log()  # (N, 2)
+    labels = t["rain"].reshape(-1)
+    args = {"mse": (mean, target), "l1": (mean, target), "focal": (t["probs"], t["rain"]),
+            "ssim": (frames, truth), "ms_ssim": (frames, truth), "ssim_dynamic": (now, frames, truth),
+            "tv": (mean.flatten(0, 1),), "total_variation": (mean.flatten(0, 1),),
+            "gdl": (mean, target), "gradient_difference_loss": (mean, target)}
+    for name in ("bce", "binary_crossentropy", "crossentropy"):
+        args[name] = (log_probs, labels)
+    out = {f"get_loss({name!r})": losses.get_loss(name)(*args[name]) for name in losses.LOSS_NAMES}
+    out.update({
+        "ssim": losses.ssim(frames, truth),
+        "ms_ssim": losses.ms_ssim(frames, truth),
+        "ms_ssim(size_average=False)": losses.ms_ssim(frames, truth, size_average=False).sum(),
+        "SSIMLossDynamic": losses.SSIMLossDynamic()(now, frames, truth),
+        "grid_cell_regularizer": losses.grid_cell_regularizer(ens, target),
+        "GridCellLoss": losses.GridCellLoss(weight_fn=losses.weight_fn)(mean, target),
+        "FocalLoss": losses.FocalLoss()(t["probs"], t["rain"]),
+        "FocalLoss(alpha=[0.25, 0.75])": losses.FocalLoss(alpha=[0.25, 0.75])(t["probs"], t["rain"]),
+    })
+    return {k: v.item() for k, v in out.items()}
+
+
+def loss_gradient(criterion, x, y) -> tuple:
+    """``d criterion(x, y) / dx`` and the loss's value."""
+    x = x.detach().requires_grad_()
+    value = criterion(x, y)
+    value.backward()
+    return x.grad, value.item()
+
+
+def coord_conv_card_vs_cpu(torch, dev) -> None:
+    """18c: CoordConv, both with_r, f32 and bf16, eval and one train forward, card vs CPU."""
+    import copy
+
+    from skillful_nowcasting_tpu_torch.layers import CoordConv
+    from skillful_nowcasting_tpu_torch.ops import spectral_norm as sn
+
+    gen = torch.Generator().manual_seed(182)
+    x = torch.randn((2, 48, 64, 64), generator=gen)  # the context stack's 64^2 x 48 level
+    for with_r in (False, True):
+        torch.manual_seed(183)
+        cpu = CoordConv(48, 96, with_r, kernel_size=3, padding=1, spectral_norm=True)
+        card = copy.deepcopy(cpu).to(dev)
+        for dtype, tol in ((torch.float32, LOSS_TOL), (torch.bfloat16, KERNEL_TOL_BF16)):
+            errs = {}
+            for mode in ("eval", "train"):
+                outs, advanced = [], []
+                for mod, d in ((card, dev), (cpu, torch.device("cpu"))):
+                    mod.train(mode == "train")
+                    par = mod.conv.parametrizations.weight
+                    u0, v0 = par[0]._u.clone(), par[0]._v.clone()
+                    with torch.no_grad():
+                        outs.append(mod(x.to(d, dtype)).float().cpu())
+                        once = sn.power_iteration(sn.kernel_to_weight_mat(par.original), u0, v0,
+                                                  par[0].eps)
+                    want = once if mode == "train" else (u0, v0)
+                    advanced.append(max((a - b).abs().max().item()
+                                        for a, b in zip((par[0]._u, par[0]._v), want)))
+                scale = outs[1].abs().max().item()
+                errs[mode] = (outs[0] - outs[1]).abs().max().item() / scale
+                if not (errs[mode] <= tol and max(advanced) <= 1e-6):
+                    fail(f"CoordConv(with_r={with_r}) {dtype} {mode}: card vs CPU {errs[mode]} "
+                         f"of max|out| (limit {tol}); u / v off one step by {advanced}")
+            print(f"score coord conv: CoordConv(48, 96, with_r={with_r}) {str(dtype)[6:]} on "
+                  f"(2, 48, 64, 64): card vs CPU eval {errs['eval']:.3e}, train "
+                  f"{errs['train']:.3e} of max|out| (limit {tol:.3e}); a train forward "
+                  f"advanced SN u / v by exactly one power iteration on both")
+
+
+def score_nowcast(torch, dev, card, counters) -> dict:
+    """Phase 18: a full-width nowcast scored by every ported loss; coord conv; the coord refusal."""
+    from skillful_nowcasting_tpu_torch import DGMR, losses
+
+    model = serving_model(torch, dev)
+    t = score_inputs(torch, dev, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    # (a) Every loss on the card against the same loss of the same tensors on the CPU.
+    on_cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in t.items()}
+    t0 = time.perf_counter()
+    card_vals = loss_table(losses, t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_vals = loss_table(losses, on_cpu)
+    t2 = time.perf_counter()
+    worst = 0.0
+    for name, want in cpu_vals.items():
+        got = card_vals[name]
+        rel = abs(got - want) / max(abs(want), 1e-30)
+        worst = max(worst, rel)
+        print(f"score loss {name}: card {got:.9g}, CPU {want:.9g}, relative {rel:.3e}")
+        if not (math.isfinite(got) and rel <= LOSS_TOL):
+            fail(f"score loss {name}: card {got} vs CPU {want} ({rel} > {LOSS_TOL} relative)")
+    print(f"score losses: {len(cpu_vals)} losses of the S=6 x B=2 x 18-frame 256^2 nowcast, "
+          f"worst card vs CPU {worst:.3e} relative (limit {LOSS_TOL}); all of them {t1 - t0:.4f} s "
+          f"on the card, {t2 - t1:.4f} s on the host's CPU, on {card}")
+
+    # (b) Gradients w.r.t. the nowcast's 216 frames, card vs CPU; the MS-SSIM pass timed.
+    frames, truth = t["frames"], t["truth"]
+    for name, crit in (("MS_SSIMLoss", losses.MS_SSIMLoss()), ("SSIMLoss", losses.SSIMLoss())):
+        runs = []
+        for _ in range(2):  # the first pass includes cuDNN's set-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g_card, v_card = loss_gradient(crit, frames, truth)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30))
+        g_cpu, v_cpu = loss_gradient(crit, on_cpu["frames"], on_cpu["truth"])
+        scale = g_cpu.abs().max().item()
+        err = (g_card.cpu() - g_cpu).abs().max().item() / scale
+        print(f"score gradient {name} (forward + backward, {frames.shape[0] * frames.shape[1]} "
+              f"frames of 256^2): loss {v_card:.9g} (CPU {v_cpu:.9g}), gradient card vs CPU "
+              f"{err:.3e} of max|grad| {scale:.3e} (limit {LOSS_GRAD_TOL}); seconds "
+              f"{[round(s, 4) for s, _ in runs]}, peak memory above the inputs "
+              f"{[round(m, 3) for _, m in runs]} GiB on {card}")
+        if not (scale > 0 and bool(torch.isfinite(g_card).all()) and err <= LOSS_GRAD_TOL):
+            fail(f"score gradient {name}: card vs CPU {err} of max-abs {scale}")
+    launches = t["launches"]
+    del t, on_cpu, frames, truth, g_card
+    torch.cuda.empty_cache()
+
+    # (c) Coord conv; (d) the blocks refuse conv_type="coord", as the JAX blocks cannot run it.
+    coord_conv_card_vs_cpu(torch, dev)
+    try:
+        DGMR(conv_type="coord")
+    except TypeError as e:
+        print(f"score refusal: DGMR(conv_type='coord') raises TypeError: {e}")
+    else:
+        fail("DGMR(conv_type='coord') was built; the blocks must refuse it")
+    return {"score": launches}
+
+
+
 _T0 = time.perf_counter()
 _LAST = [_T0]
 
@@ -2071,6 +2264,10 @@ def main() -> None:
     by_path.update(data_parallel(torch, dev, card))
 
     stamp("17")
+    # 18. A full-width nowcast scored by every ported loss, card vs CPU; coord conv; its refusal.
+    by_path.update(score_nowcast(torch, dev, card, counters))
+
+    stamp("18")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .hub.pretrained import HubMixin
+from .layers.utils import refuse_coord
 from .models.common import ContextConditioningStack, LatentConditioningStack
 from .models.discriminators import Discriminator
 from .models.generators import Sampler, ensemble_forward
@@ -75,6 +76,7 @@ class DGMR(nn.Module, HubMixin):
         num_temporal_layers: int = 3,
         device: torch.device | str = "cuda",
     ):
+        refuse_coord(conv_type, "DGMR")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -23,7 +23,7 @@ from torch import nn
 
 from ..hub.pretrained import HubMixin
 from ..layers.attention import AttentionLayer
-from ..layers.utils import get_conv_layer
+from ..layers.utils import get_conv_layer, refuse_coord
 from ..ops import (
     BatchNorm2d,
     avg_pool,
@@ -53,6 +53,7 @@ class GBlock(nn.Module):
         conv_type: str = "standard",
         spectral_normalized_eps: float = 1e-4,
     ):
+        refuse_coord(conv_type, "GBlock")
         super().__init__()
         conv = get_conv_layer(conv_type)
         eps = spectral_normalized_eps
@@ -87,6 +88,7 @@ class UpsampleGBlock(nn.Module):
         conv_type: str = "standard",
         spectral_normalized_eps: float = 1e-4,
     ):
+        refuse_coord(conv_type, "UpsampleGBlock")
         super().__init__()
         conv = get_conv_layer(conv_type)
         eps = spectral_normalized_eps
@@ -121,6 +123,7 @@ class DBlock(nn.Module):
         first_relu: bool = True,
         keep_same_output: bool = False,
     ):
+        refuse_coord(conv_type, "DBlock")
         super().__init__()
         conv = get_conv_layer(conv_type)
         self.use_sc_conv = input_channels != output_channels

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Both kernels in f32 and in bf16 (tolerance: 2^-7 of the largest plain
-output, one bf16 ulp there), and a tiny serving artifact on the card.
+output, one bf16 ulp there), a tiny serving artifact on the card, and the
+losses and ``CoordConv`` on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips where CUDA is absent. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -479,3 +480,62 @@ def test_nccl_world_of_one(dev, monkeypatch):
             training.make_train_step(DGMR(**TINY, device="cpu"), group=dist.group.WORLD)
     finally:
         dist.destroy_process_group()
+
+
+def test_losses_on_card_match_cpu(dev):
+    """Every ported loss of the same tensors, card vs CPU: <= 1e-5 relative; MS-SSIM's gradient."""
+    from skillful_nowcasting_tpu_torch import losses
+
+    gen = torch.Generator().manual_seed(90)
+    x = torch.rand((2, 3, 1, 176, 180), generator=gen)
+    y = (x + 0.1 * torch.randn(x.shape, generator=gen)).clamp(0, 1)
+    ens = x + 0.05 * torch.randn((3, *x.shape), generator=gen)
+    p = 0.01 + 0.98 * torch.rand((2, 3, 176, 180), generator=gen)
+    probs, rain = torch.stack([1 - p, p], 1), (y[:, :, 0] > 0.5).long()
+    log_probs, labels = probs.movedim(1, -1).reshape(-1, 2).log(), rain.reshape(-1)
+    args = {"focal": (probs, rain), "ssim_dynamic": (x[:, -1:], x, y), "tv": (x[:, 0],),
+            "total_variation": (x[:, 0],)}
+    for name in ("bce", "binary_crossentropy", "crossentropy"):
+        args[name] = (log_probs, labels)
+    cases = [(f"get_loss({n})", losses.get_loss(n), args.get(n, (x, y))) for n in losses.LOSS_NAMES]
+    cases += [("grid_cell_regularizer", losses.grid_cell_regularizer, (ens, y)),
+              ("FocalLoss(alpha=0.25)", losses.FocalLoss(alpha=0.25), (probs, rain)),
+              ("ms_ssim(size_average=False)",
+               lambda a, b: losses.ms_ssim(a, b, size_average=False).sum(), (x, y))]
+    for name, fn, a in cases:
+        want = fn(*a).item()
+        got = fn(*(v.to(dev) for v in a)).item()
+        assert abs(got - want) <= 1e-5 * abs(want), (name, got, want)
+    for crit in (losses.MS_SSIMLoss(), losses.SSIMLoss()):
+        grads = []
+        for d in ("cpu", dev):
+            xd = x.detach().to(d).requires_grad_()  # a fresh leaf on each device
+            crit(xd, y.to(d)).backward()
+            grads.append(xd.grad.cpu())
+        assert (grads[1] - grads[0]).abs().max() <= 1e-4 * grads[0].abs().max()
+
+
+@pytest.mark.parametrize("with_r", [False, True])
+def test_coord_conv_on_card_matches_cpu(dev, with_r):
+    """CoordConv card vs CPU in f32 and bf16; a train forward advances SN u / v once on the card."""
+    import copy
+
+    from skillful_nowcasting_tpu_torch.layers import CoordConv
+    from skillful_nowcasting_tpu_torch.ops import spectral_norm as sn
+
+    torch.manual_seed(91)
+    cpu = CoordConv(6, 8, with_r, kernel_size=3, padding=1, spectral_norm=True).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = randn(np.random.default_rng(92), 2, 6, 33, 40)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-7)):
+        want = cpu(x.to(dtype)).float()
+        got = card(x.to(dev, dtype)).float().cpu()
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    card.train()
+    par = card.conv.parametrizations.weight
+    u0, v0 = par[0]._u.clone(), par[0]._v.clone()
+    with torch.no_grad():
+        card(x.to(dev))
+        u1, v1 = sn.power_iteration(sn.kernel_to_weight_mat(par.original), u0, v0, par[0].eps)
+    assert torch.allclose(par[0]._u, u1, atol=1e-6) and torch.allclose(par[0]._v, v1, atol=1e-6)
+    assert not torch.equal(par[0]._u, u0)

@@ -17,7 +17,7 @@ from skillful_nowcasting_tpu import ops as jops
 from skillful_nowcasting_tpu.layers import AttentionLayer as JaxAttentionLayer
 from skillful_nowcasting_tpu.ops import spectral_norm as jsn
 from skillful_nowcasting_tpu_torch import ops
-from skillful_nowcasting_tpu_torch.layers import AttentionLayer, get_conv_layer
+from skillful_nowcasting_tpu_torch.layers import AttentionLayer, coord_conv2d, get_conv_layer
 from skillful_nowcasting_tpu_torch.ops import spectral_norm as sn
 from torch_port_helpers import (
     ATOL,
@@ -139,11 +139,10 @@ def test_attention_layer_matches_jax(mode):
 
 
 def test_get_conv_layer_ports_standard_only():
-    """"standard" and "3d" are ported; "coord" is not yet."""
+    """"standard", "3d" and "coord" (``tests/test_torch_coord.py`` holds it against JAX)."""
     assert get_conv_layer("standard") is ops.conv2d
     assert get_conv_layer("3d") is ops.conv3d
-    with pytest.raises(NotImplementedError):
-        get_conv_layer("coord")
+    assert get_conv_layer("coord") is coord_conv2d
     with pytest.raises(ValueError):
         get_conv_layer("nope")
 
@@ -171,6 +170,7 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.parallel, skillful_nowcasting_tpu_torch.parallel.mesh\n"
         "import skillful_nowcasting_tpu_torch.parallel.dp\n"
         "import skillful_nowcasting_tpu_torch.parallel.spatial\n"
+        "import skillful_nowcasting_tpu_torch.layers.coord_conv\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
