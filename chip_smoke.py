@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel and scoring paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel, scoring and spatially sharded paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
@@ -137,6 +137,27 @@ the top kernels by device time) and prints no result line.
    and one train forward) card vs CPU (<= 1e-5, bf16 <= 2^-7 of max|out|),
    SN ``u`` / ``v`` advanced by exactly one power iteration in train mode;
    ``DGMR(conv_type="coord")`` raises ``TypeError``.
+19. The generator forward H-sharded over a ``(data=1, space=2)`` mesh
+   (``parallel.make_spatial_forward``). (a) In the parent, before the ranks:
+   each kernel, f32 and bf16, alone on the windows that layout hands it at
+   512^2 (GBlock 10 / 18 / 34 / 66 rows at widths 16-128, the rollout 101 x
+   128 at the top level and whole levels below), against its plain version
+   at phase 3's tolerances, timed beside its bound. Then two ranks of this
+   script on ``cuda:0`` over ``gloo``, as in phase 17, each with phase 4's
+   seeded weights in ``DGMR(output_shape=512)``, B=1 seeded advecting-blob
+   context frames and a fixed latent: (b) the gathered sharded nowcast
+   against the dense forward of the same model on the rank, f32 (TF32 off)
+   <= 1e-4 of max|dense| and bf16 <= 2^-5 of each frame's max|dense| (four
+   bf16 ulps; the dense forward's own spread, the same sample at B=2
+   against B=1, is two, printed beside it with the one-ulp verdict), with
+   the share of bit-equal elements; (c) exactly 4 / 8 launches of the
+   input's dtype in a sharded forward, the kernels' window rows as the
+   layout implies, ``halo_window`` called; (d) seconds of a forward after a
+   warm-up and peak memory, sharded and dense, the halo calls, bytes and
+   host seconds of a forward (gloo stages them through the host) and the
+   rollout's recompute factor per level (window rows / stripe rows); (e) the
+   same in bf16 at 1024^2. Two ranks on one card measure the semantics and
+   the layout's costs, not scaling.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -225,23 +246,25 @@ def bound(flops: float, nbytes: float, kind: str = "f32") -> tuple[float, float]
     return 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
 
 
-def gru_work(t_in: int, b: int, hw: int, c: int, steps: int, elem: int = 4):
+def gru_work(t_in: int, b: int, hw, c: int, steps: int, elem: int = 4):
     """FLOPs and bytes of one rollout: 18 steps of conv3(h, k_ru) and conv3(r*h, k_c).
 
-    Every operand has ``elem`` bytes an element (4 f32, 2 bf16).
+    ``hw`` is the side of a square map or its ``(h, w)``. Every operand has
+    ``elem`` bytes an element (4 f32, 2 bf16).
     """
-    m = b * hw * hw
+    m = b * math.prod((hw, hw) if isinstance(hw, int) else hw)
     flops = steps * 2.0 * m * 9 * c * 3 * c
     values = 9 * c * 3 * c + 3 * c + t_in * m * 3 * c + m * c + steps * m * c
     return flops, elem * values
 
 
-def gblock_work(n: int, hw: int, cin: int, cout: int, elem: int = 4):
+def gblock_work(n: int, hw, cin: int, cout: int, elem: int = 4):
     """FLOPs and bytes of one eval GBlock: two 3x3 convs (+ the 1x1 shortcut).
 
-    x, out and the kernels have ``elem`` bytes an element; the affines are f32.
+    ``hw`` as in :func:`gru_work`. x, out and the kernels have ``elem`` bytes
+    an element; the affines are f32.
     """
-    m = n * hw * hw
+    m = n * math.prod((hw, hw) if isinstance(hw, int) else hw)
     sc = cin != cout
     flops = 2.0 * m * 9 * cin * (cin + cout) + (2.0 * m * cin * cout if sc else 0.0)
     values = m * (cin + cout) + 9 * cin * (cin + cout) + (cin * cout if sc else 0)
@@ -297,12 +320,15 @@ def spills(report: str) -> dict:
     return out
 
 
-def serving_model(torch, dev):
-    """The paper-config ``DGMR()`` on the card: seeded weights, BN stats and gamma perturbed."""
+def serving_model(torch, dev, **config):
+    """The paper-config ``DGMR(**config)`` on the card: seeded weights, BN stats and gamma perturbed.
+
+    ``config`` may change ``output_shape`` (the latent's size), which no weight depends on.
+    """
     from skillful_nowcasting_tpu_torch import DGMR
     from skillful_nowcasting_tpu_torch.utils import random_fill
 
-    model = DGMR().eval()
+    model = DGMR(**config).eval()
     random_fill(model, torch.Generator().manual_seed(1))
     with torch.no_grad():  # exercise quirk Q1 and the BN fold
         pg = torch.Generator().manual_seed(2)
@@ -1632,8 +1658,12 @@ def dp_halo(torch, rank, dev, mesh, say) -> None:
         fail(f"17 halo_conv2d differs from the dense conv by {err}")
 
 
-def dp_rank_main(args) -> None:
-    """One rank of phase 17 (``--dp-rank``): gloo on cuda:0; writes its launches as JSON."""
+def rank_setup(args, prefix: str):
+    """A rank's start (``--dp-rank``): TF32 off, its launch counters, gloo on cuda:0.
+
+    Returns ``(torch, rank, dev, counters, say)``; ``say`` prints a line under
+    ``prefix`` with the card's name and power limit.
+    """
     import torch
     import torch.distributed as dist
     from datetime import timedelta
@@ -1644,13 +1674,12 @@ def dp_rank_main(args) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(4)  # two ranks on the card machine's 8 cores
     from skillful_nowcasting_tpu_torch.ops import convgru_rollout, gblock_fused
-    from skillful_nowcasting_tpu_torch.parallel import make_mesh
 
     rank, dev = args.dp_rank, torch.device("cuda", 0)
     card = card_name()
 
     def say(line: str) -> None:
-        print(f"dp rank {rank}: {line}; on {card}", flush=True)
+        print(f"{prefix} {rank}: {line}; on {card}", flush=True)
 
     counters = (Counter(convgru_rollout, "launches", "convgru_rollout"),
                 Counter(gblock_fused, "launches", "gblock_fused"),
@@ -1658,6 +1687,14 @@ def dp_rank_main(args) -> None:
                 Counter(gblock_fused, "launches_bf16", "gblock_fused_bf16"))
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.dp_port}", rank=rank,
                             world_size=DP_RANKS, timeout=timedelta(seconds=300))
+    return torch, rank, dev, counters, say
+
+
+def dp_rank_main(args) -> None:
+    """One rank of phase 17 (``--dp-rank``): gloo on cuda:0; writes its launches as JSON."""
+    torch, rank, dev, counters, say = rank_setup(args, "dp rank")
+    from skillful_nowcasting_tpu_torch.parallel import make_mesh
+
     try:
         meshes = {"card": make_mesh(device=dev), "cpu": make_mesh(device="cpu")}
         marks = [time.perf_counter()]
@@ -1674,7 +1711,54 @@ def dp_rank_main(args) -> None:
         with open(os.path.join(args.dp_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"launches": by_path, "param_bytes": param_bytes}, f)
     finally:
-        dist.destroy_process_group()
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(phase: int, timeout: float, prefix: str) -> list:
+    """Start ``DP_RANKS`` ranks of this script for ``phase`` (``--dp-rank``) on cuda:0; their results.
+
+    Each rank writes ``rank<r>.json`` into a scratch directory. A rank that
+    fails fails the phase at once; every rank's log is printed, each line
+    under ``prefix``.
+    """
+    root = tempfile.mkdtemp(prefix=f"dgmr_phase{phase}_")
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(DP_RANKS):
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-port",
+                 str(port), "--dp-dir", root, "--dp-phase", str(phase)], stdout=logs[-1],
+                stderr=subprocess.STDOUT, env={**os.environ, "OMP_NUM_THREADS": "4"}))
+        t0 = time.perf_counter()
+        while any(p.poll() is None for p in procs):  # a failed rank fails the phase at once
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.5)
+        codes = [p.poll() for p in procs]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, log in enumerate(logs):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(line if line.startswith(prefix) else f"{prefix} {r} | {line}")
+        if codes != [0] * DP_RANKS:
+            fail(f"phase {phase}: rank exit codes {codes} (None: killed after {timeout} s or "
+                 "after the other rank failed)")
+        results = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    finally:
+        for log in logs:
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return results
 
 
 def data_parallel(torch, dev, card) -> dict:
@@ -1687,43 +1771,7 @@ def data_parallel(torch, dev, card) -> dict:
     print(f"17 the parent before the ranks start: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
           f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; the card "
           f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free")
-    root = tempfile.mkdtemp(prefix="dgmr_dp_")
-    port = free_port()
-    procs, logs = [], []
-    try:
-        for r in range(DP_RANKS):
-            logs.append(open(os.path.join(root, f"rank{r}.log"), "w+"))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-port",
-                 str(port), "--dp-dir", root], stdout=logs[-1], stderr=subprocess.STDOUT,
-                env={**os.environ, "OMP_NUM_THREADS": "4"}))
-        t0 = time.perf_counter()
-        while any(p.poll() is None for p in procs):  # a failed rank fails the phase at once
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            if time.perf_counter() - t0 > DP_TIMEOUT:
-                break
-            time.sleep(0.5)
-        codes = [p.poll() for p in procs]
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for r, log in enumerate(logs):
-            log.seek(0)
-            for line in log.read().splitlines():
-                print(line if line.startswith("dp rank") else f"dp rank {r} | {line}")
-        if codes != [0] * DP_RANKS:
-            fail(f"phase 17: rank exit codes {codes} (None: killed after {DP_TIMEOUT} s or "
-                 "after the other rank failed)")
-        results = []
-        for r in range(DP_RANKS):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                results.append(json.load(f))
-    finally:
-        for log in logs:
-            log.close()
-        shutil.rmtree(root, ignore_errors=True)
+    results = run_ranks(17, DP_TIMEOUT, "dp rank")
     by_path = {f"{path}_rank{r}": counts for r, res in enumerate(results)
                for path, counts in res["launches"].items()}
     nccl_world_of_one(torch, dev, card, results[0]["param_bytes"] // 4)
@@ -2000,6 +2048,185 @@ def score_nowcast(torch, dev, card, counters) -> dict:
 
 
 
+# Phase 19: the generator forward H-sharded over the two ranks of a (data=1, space=2) mesh.
+SPACE_SIZE = 512  # 16 latent rows: 8 a rank, the deepest state's even split
+SPACE_LARGE = 1024  # 19e, bf16
+SPACE_BUCKET = f"space_windows_{SPACE_SIZE}"
+SPACE_F32_TOL = 1e-4  # of max|dense|
+# bf16: of each frame's max|dense|, four bf16 ulps of its largest value. One ulp (2^-7) is not
+# met by the dense bf16 forward against itself: the same sample at B=2 and at B=1 (other cuDNN
+# plans; both kernels are bit-invariant to a window's rows) differ by up to two ulps of a
+# frame's max, and the sharded forward by two (PERF.md, section 6). Each bf16 case prints that
+# spread and the one-ulp verdict beside its result. A wrong halo row is off by O(1) there.
+SPACE_BF16_TOL = 2.0**-5
+SPACE_TIMEOUT = 300  # seconds for both ranks together
+SPACE_NOTE = ("two ranks share one card's SMs and gloo stages every halo through the host: these "
+              "figures show the layout's semantics and costs, not scaling")
+
+
+def space_levels(size: int, steps: int) -> list:
+    """Per Sampler level on 2 space ranks: (rows, stripe rows, rollout window, GBlock window).
+
+    Each rank has one neighbour: a window is the stripe and the rows a kernel
+    reaches on the neighbour's side (2 T + 1 for the rollout, 2 for the
+    GBlock), clipped to the level.
+    """
+    out = []
+    for level in range(4):
+        rows = size // 32 * 2**level
+        stripe = rows // DP_RANKS
+        out.append((rows, stripe, min(rows, stripe + 2 * steps + 1), min(rows, stripe + 2)))
+    return out
+
+
+def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
+    """19b-d on one rank for one field and dtype: launches, the sharded forward against the dense one."""
+    import skillful_nowcasting_tpu_torch.layers.convgru as convgru_mod
+    import skillful_nowcasting_tpu_torch.models.common as common_mod
+    from skillful_nowcasting_tpu_torch.parallel import (
+        gather_space,
+        halo_exchange,
+        halo_window,
+        make_spatial_forward,
+    )
+
+    bf16 = dtype == torch.bfloat16
+    size, steps = x.shape[-1], model.forecast_steps
+    tag = f"19 {size}^2 {'bf16' if bf16 else 'f32'}"
+    x = x.to(dtype)
+    fwd = make_spatial_forward(model, mesh)
+    comms = (halo_window, halo_exchange)
+
+    def reset_comms():
+        for fn in comms:
+            fn.calls, fn.bytes, fn.seconds = 0, 0, 0.0
+
+    # (c) The first forward, counted from 0: 4 / 8 launches of x's dtype, the windows' rows.
+    windows = {"rollout": [], "gblock": []}  # (rows, W, C) of each kernel's input
+
+    def watched(name, fn, arg):
+        def wrapper(*args, **kwargs):
+            windows[name].append(tuple(args[arg].shape[1:]))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    rollout, gblock = convgru_mod.convgru_rollout, common_mod.gblock_fused
+    convgru_mod.convgru_rollout = watched("rollout", rollout, 1)  # h0 (B, H, W, C)
+    common_mod.gblock_fused = watched("gblock", gblock, 0)  # x (N, H, W, Cin)
+    for counter in counters:
+        counter.launches = 0
+    reset_comms()
+    try:
+        with torch.inference_mode():
+            y = fwd(x, z=z)
+        torch.cuda.synchronize()
+    finally:
+        convgru_mod.convgru_rollout, common_mod.gblock_fused = rollout, gblock
+    launches, want = launch_counts(counters), expected_launches(1, bf16)
+    say(f"{tag}: launches of one sharded forward {launches}, expected {want}; halo_window "
+        f"{halo_window.calls} calls, halo_exchange {halo_exchange.calls}")
+    if launches != want or not halo_window.calls > 0:
+        fail(f"{tag}: launches {launches} (expected {want}), {halo_window.calls} halo_window calls")
+    levels = space_levels(size, steps)
+    factors = [round(w[0] / lv[1], 4) for w, lv in zip(windows["rollout"], levels)]
+    say(f"{tag}: the rollout's windows (rows, W, C) {windows['rollout']} for stripes of "
+        f"{[lv[1] for lv in levels]} rows: recompute factor per level {factors}; the GBlock's "
+        f"windows {windows['gblock']}")
+    if [w[0] for w in windows["rollout"]] != [lv[2] for lv in levels] or \
+            [w[0] for w in windows["gblock"]] != [lv[3] for lv in levels]:
+        fail(f"{tag}: the kernels' windows differ from {levels}")
+
+    # (b, d) A timed forward of each, both ranks starting together; peak memory above the inputs.
+    def timed(fn):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    reset_comms()
+    y, sec, peak = timed(lambda: fwd(x, z=z))
+    comm = {fn.__name__: (fn.calls, fn.bytes, round(fn.seconds, 4)) for fn in comms}
+    with torch.inference_mode():
+        whole = gather_space(y, mesh)
+        model(x, z=z)  # the dense forward's warm-up
+    dense, dense_sec, dense_peak = timed(lambda: model(x, z=z))
+    if tuple(y.shape) != (1, steps, 1, size // DP_RANKS, size) or \
+            whole.shape != dense.shape or not bool(torch.isfinite(whole).all()):
+        fail(f"{tag}: stripe {tuple(y.shape)}, gathered {tuple(whole.shape)}, or non-finite")
+    def frame_err(a, b) -> float:  # worst frame of (B, T): max|a - b| over the frame's max|b|
+        a, b = a.float(), b.float()
+        return ((a - b).abs().amax(dim=(-3, -2, -1))
+                / b.abs().amax(dim=(-3, -2, -1)).clamp_min(1e-30)).max().item()
+
+    equal = (whole == dense).float().mean().item()
+    if bf16:
+        err, tol, of = frame_err(whole, dense), SPACE_BF16_TOL, "of its frame's max|dense|"
+        with torch.inference_mode():  # the dense forward's own spread: this sample in a B=2 batch
+            again = model(torch.cat([x, x]), z=z)[:1]
+        spread = (f"; one bf16 ulp (2^-7) {'met' if err <= 2.0**-7 else 'not met'}; the dense "
+                  f"forward's own spread (the sample at B=2 against B=1) "
+                  f"{frame_err(again, dense):.3e}, {100 * (again == dense).float().mean().item():.4f}% "
+                  "bit-equal")
+        del again
+    else:
+        err = (whole - dense).abs().max().item() / dense.abs().max().item()
+        tol, of, spread = SPACE_F32_TOL, "of max|dense|", ""
+    say(f"{tag}: gathered sharded nowcast vs the dense forward {err:.3e} {of} (limit {tol:.3e}), "
+        f"{100 * equal:.4f}% of elements bit-equal{spread}")
+    say(f"{tag}: a forward (after a warm-up) sharded {sec:.4f} s, dense {dense_sec:.4f} s; peak "
+        f"memory above the inputs sharded {peak:.3f} GiB, dense {dense_peak:.3f} GiB; halo "
+        f"(calls, bytes received, host seconds) of the sharded forward {comm} ({SPACE_NOTE})")
+    if not err <= tol:
+        fail(f"{tag}: the sharded nowcast differs from the dense one by {err} > {tol} {of}")
+    return launches
+
+
+def spatial_rank_main(args) -> None:
+    """One rank of phase 19 (``--dp-rank``, ``--dp-phase 19``): 19b-e; writes its launches as JSON."""
+    torch, rank, dev, counters, say = rank_setup(args, "space rank")
+    from skillful_nowcasting_tpu_torch.data.synthetic import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.parallel import make_mesh
+
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(1, n_space=DP_RANKS, device=dev)
+        model = serving_model(torch, dev, output_shape=SPACE_SIZE)
+        by_path = {}
+        for size, dtypes in ((SPACE_SIZE, (torch.float32, torch.bfloat16)),
+                             (SPACE_LARGE, (torch.bfloat16,))):
+            # Every rank renders the same global batch (B=1 advecting blobs of 2-12 mm/h, over
+            # 12) and draws the same latent: the shared key of JAX's spatial forward.
+            ctx, _ = next(synthetic_radar_batches_device(batch_size=1, size=size, seed=19,
+                                                         device=dev))
+            z = torch.randn((1, 8, size // 32, size // 32),
+                            generator=torch.Generator().manual_seed(190))
+            for dtype in dtypes:
+                name = f"space_{size}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                by_path[name] = spatial_case(torch, model, mesh, ctx / 12.0, z, dtype, counters,
+                                             say)
+        say(f"19 seconds in this rank: {time.perf_counter() - t0:.1f}")
+        with open(os.path.join(args.dp_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"launches": by_path}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spatial_forward(torch) -> dict:
+    """Phase 19b-e: two space ranks of this script on cuda:0 (the kernels are built)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = run_ranks(19, SPACE_TIMEOUT, "space rank")
+    return {f"{path}_rank{r}": counts for r, res in enumerate(results)
+            for path, counts in res["launches"].items()}
+
+
 _T0 = time.perf_counter()
 _LAST = [_T0]
 
@@ -2022,9 +2249,10 @@ def main() -> None:
     parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-phase", type=int, default=17, help=argparse.SUPPRESS)
     args = parser.parse_args()
-    if args.dp_rank is not None:  # one rank of phase 17, started by the phase itself
-        dp_rank_main(args)
+    if args.dp_rank is not None:  # one rank of phase 17 or 19, started by the phase itself
+        (spatial_rank_main if args.dp_phase == 19 else dp_rank_main)(args)
         return
 
     # 1. Device.
@@ -2122,23 +2350,43 @@ def main() -> None:
         r["ops_ms"] += ops_ms
         r["bytes_ms"] += bytes_ms
 
+    def gru_case(t_in, batch, h, w, c, dtype):
+        """A rollout's arguments: gx, h0, the hidden-part kernels, bias, steps."""
+        s = (9 * c) ** -0.5  # gates stay away from saturation
+        return (
+            rand(t_in, batch, h, w, 3 * c, dtype=dtype),
+            rand(batch, h, w, c, dtype=dtype),
+            rand(3, 3, c, 2 * c, scale=s, dtype=dtype),
+            rand(3, 3, c, c, scale=s, dtype=dtype),
+            rand(3 * c, scale=0.1, dtype=dtype),
+            steps,
+        )
+
+    def gblock_case(n, h, w, cin, cout, dtype):
+        """An eval GBlock's arguments: x, the three kernels, the f32 affines, the shortcut flag."""
+        return (
+            rand(n, h, w, cin, dtype=dtype),
+            rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5, dtype=dtype),
+            rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=dtype),
+            rand(1, 1, cin, cout, scale=cin ** -0.5, dtype=dtype),
+            1.0 + rand(cin, scale=0.1),
+            rand(cin, scale=0.1),
+            1.0 + rand(cin, scale=0.1),
+            rand(cin, scale=0.1),
+            rand(cout, scale=0.1),
+            cin != cout,
+        )
+
     # The serving request's batch (B=2) and the tile batch of tiled_nowcast_device (B=16 tiles,
     # so N = 16 x 18 GBlock rows): the GRU's split-K plan depends on M = B H W. bf16 takes the
     # same shapes, all operands bf16 but the GBlock's f32 affines.
     steps = 18
-    for kind, dtype, elem in (("f32", torch.float32, 4), ("bf16", torch.bfloat16, 2)):
+    kinds = (("f32", torch.float32, 4), ("bf16", torch.bfloat16, 2))  # kind, dtype, bytes
+    for kind, dtype, elem in kinds:
         suffix = "" if kind == "f32" else "_bf16"
         for batch, reps, bucket in ((2, 20, None), (TILE_BATCH, 5, f"tile_batch_{TILE_BATCH}")):
             for t_in, hw, c in ((1, 8, 384), (steps, 16, 192), (steps, 32, 96), (steps, 64, 48)):
-                s = (9 * c) ** -0.5  # gates stay away from saturation
-                args = (
-                    rand(t_in, batch, hw, hw, 3 * c, dtype=dtype),
-                    rand(batch, hw, hw, c, dtype=dtype),
-                    rand(3, 3, c, 2 * c, scale=s, dtype=dtype),
-                    rand(3, 3, c, c, scale=s, dtype=dtype),
-                    rand(3 * c, scale=0.1, dtype=dtype),
-                    steps,
-                )
+                args = gru_case(t_in, batch, hw, hw, c, dtype)
                 compare(f"convgru_rollout{suffix}", convgru_rollout, convgru_rollout_reference,
                         args, f"T={steps} gx={tuple(args[0].shape)}", reps=reps,
                         work=gru_work(t_in, batch, hw, c, steps, elem), kind=kind, bucket=bucket)
@@ -2146,18 +2394,7 @@ def main() -> None:
             n = steps * batch
             for hw, cin, cout in ((8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96),
                                   (16, 384, 192)):
-                args = (
-                    rand(n, hw, hw, cin, dtype=dtype),
-                    rand(3, 3, cin, cin, scale=(9 * cin) ** -0.5, dtype=dtype),
-                    rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=dtype),
-                    rand(1, 1, cin, cout, scale=cin ** -0.5, dtype=dtype),
-                    1.0 + rand(cin, scale=0.1),
-                    rand(cin, scale=0.1),
-                    1.0 + rand(cin, scale=0.1),
-                    rand(cin, scale=0.1),
-                    rand(cout, scale=0.1),
-                    cin != cout,
-                )
+                args = gblock_case(n, hw, hw, cin, cout, dtype)
                 compare(f"gblock_fused{suffix}", gblock_fused, gblock_fused_reference, args,
                         f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
                         work=gblock_work(n, hw, cin, cout, elem), kind=kind, bucket=bucket)
@@ -2268,6 +2505,52 @@ def main() -> None:
     by_path.update(score_nowcast(torch, dev, card, counters))
 
     stamp("18")
+    # 19. The generator forward H-sharded over two space ranks: (a) here, both kernels alone on
+    # the windows that layout hands them at 512^2; (b)-(e) in two ranks on cuda:0.
+    # Each window is cut from a whole level's operands: the first rank's (the top rows) is held
+    # against the plain version and timed; both ranks' stripes must equal the same rows of the
+    # kernel on the whole level, bit for bit (the kernels do not depend on a window's offset).
+    def window_of(name, whole, lo, n):  # the operands of rows lo:lo+n of a whole level
+        if name == "gru":  # gx (T, B, H, W, 3C), h0 (B, H, W, C)
+            return (whole[0][:, :, lo:lo + n].contiguous(), whole[1][:, lo:lo + n].contiguous(),
+                    *whole[2:])
+        return (whole[0][:, lo:lo + n].contiguous(), *whole[1:])  # x (N, H, W, Cin)
+
+    def windows_exact(name, fn, whole, window, stripe):
+        rows, axis = whole[1 if name == "gru" else 0].shape[1], 2 if name == "gru" else 1
+        full = fn(*whole)
+        for lo, keep in ((0, 0), (rows - window, window - stripe)):
+            got = fn(*window_of(name, whole, lo, window)).narrow(axis, keep, stripe)
+            if not torch.equal(got, full.narrow(axis, lo + keep, stripe)):
+                fail(f"19a {name} window rows {lo}:{lo + window} of {rows}: its stripe differs "
+                     "from the kernel on the whole level")
+
+    for kind, dtype, elem in kinds:
+        suffix = "" if kind == "f32" else "_bf16"
+        for level, (rows, stripe, gru_rows, gb_rows) in enumerate(space_levels(SPACE_SIZE, steps)):
+            c, t_in = 384 >> level, 1 if level == 0 else steps
+            whole = gru_case(t_in, 1, rows, rows, c, dtype)
+            args = window_of("gru", whole, 0, gru_rows)
+            compare(f"convgru_rollout{suffix}", convgru_rollout, convgru_rollout_reference, args,
+                    f"space window of a {stripe}-row stripe, T={steps} gx={tuple(args[0].shape)}",
+                    reps=5, work=gru_work(t_in, 1, (gru_rows, rows), c, steps, elem), kind=kind,
+                    bucket=SPACE_BUCKET)
+            windows_exact("gru", convgru_rollout, whole, gru_rows, stripe)
+            cin = 768 >> level
+            whole = gblock_case(steps, rows, rows, cin, cin, dtype)
+            args = window_of("gblock", whole, 0, gb_rows)
+            compare(f"gblock_fused{suffix}", gblock_fused, gblock_fused_reference, args,
+                    f"space window of a {stripe}-row stripe, x={tuple(args[0].shape)} cout={cin}",
+                    reps=5, work=gblock_work(steps, (gb_rows, rows), cin, cin, elem), kind=kind,
+                    bucket=SPACE_BUCKET)
+            windows_exact("gblock", gblock_fused, whole, gb_rows, stripe)
+            del whole, args
+    print("19a: every window's stripe equals the kernel on the whole level, bit for bit, f32 and "
+          "bf16, both ranks")
+    torch.cuda.empty_cache()
+    by_path.update(spatial_forward(torch))
+
+    stamp("19")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

@@ -126,11 +126,18 @@ class DGMR(nn.Module, HubMixin):
         x: torch.Tensor,
         z: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        space=None,
     ) -> torch.Tensor:
-        """Generator forward: one nowcast sample; ``z`` is ``(1, 8C, H/32, W/32)``."""
-        states = self.conditioning_stack(x)
+        """Generator forward: one nowcast sample; ``z`` is ``(1, 8C, H/32, W/32)``.
+
+        ``space`` (eval only; see :func:`~.parallel.make_spatial_forward`, which
+        passes it) is this rank's :class:`~.parallel.spatial.SpaceLayout`: ``x``
+        and the nowcast are then its stripes of an H-sharded field, and the
+        latent stack runs whole.
+        """
+        states = self.conditioning_stack(x, space=space)
         latent = self.latent_stack(x, z=z, generator=generator)
-        return self.sampler(states, latent)
+        return self.sampler(states, latent, space=space)
 
     def generate_ensemble(
         self,

@@ -13,6 +13,14 @@ the hidden parts run inside :func:`~skillful_nowcasting_tpu_torch.ops.convgru_ro
 which launches the hand-written kernel for CUDA tensors. Train mode runs a
 plain step loop instead, with per-step spectral norm: the kernel has no
 backward, and the JAX package does not use its kernel in training either.
+
+Under a space layout (``space=``, eval only) ``h0`` and ``x`` are this
+rank's stripes of an H-sharded field, and the rollout kernel runs once on a
+window of ``2 T + 1`` rows a side (clipped to the field). The rows a
+window's inner edge spoils spread 2 rows a step (each step's two dependent
+3x3 convs on ``h``; the input-part conv's 1 row lies inside them), so after
+T steps 2 T rows are wrong and the stripe is exact with a row to spare. At
+small levels the window is the whole level, recomputed on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv2d, convgru_rollout
+from ..ops.conv import SPATIAL_TRAIN_NOT_PORTED
 
 
 class ConvGRUCell(nn.Module):
@@ -63,6 +72,8 @@ class ConvGRU(nn.Module):
     Input sequence ``(T, B, Cx, H, W)`` (or ``(B, Cx, H, W)`` with
     ``x_static=True``, every step receiving the same tensor), initial hidden
     state ``(B, Ch, H, W)``; returns the stacked states ``(T, B, Ch, H, W)``.
+    With ``space=`` the state, the output and a sequence input are this
+    rank's stripes; a static input is whole on every rank (the latent).
     """
 
     def __init__(
@@ -81,11 +92,28 @@ class ConvGRU(nn.Module):
         hidden_state: torch.Tensor,
         n_steps: Optional[int] = None,
         x_static: bool = False,
+        space=None,
     ) -> torch.Tensor:
         if x_static and n_steps is None:
             raise ValueError("x_static requires n_steps")
         if self.training:
+            if space is not None:
+                raise NotImplementedError(SPATIAL_TRAIN_NOT_PORTED)
             return self._train_forward(x_seq, hidden_state, n_steps, x_static)
+        if space is None:
+            return self._rollout(x_seq, hidden_state, n_steps, x_static)
+        rows = 2 * (n_steps if x_static else x_seq.shape[0]) + 1
+        h0, top, bottom = space.window(hidden_state, rows)
+        if x_static:  # whole on every rank: cut the window's rows, nothing is sent
+            lo = space.rank * hidden_state.shape[-2] - top
+            x_seq = x_seq[..., lo:lo + h0.shape[-2], :]
+        else:
+            x_seq, _, _ = space.window(x_seq, rows)
+        out = self._rollout(x_seq, h0, n_steps, x_static)
+        return out[..., top:out.shape[-2] - bottom, :]
+
+    def _rollout(self, x_seq, hidden_state, n_steps, x_static):
+        """Eval: the input-part conv, then one rollout kernel launch."""
         cell = self.cell
         xc = self.input_channels - self.output_channels
         # Spectral norm is applied by .weight (eval: constant across steps),

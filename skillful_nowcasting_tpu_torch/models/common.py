@@ -12,6 +12,13 @@ semantics: with ``steps=S`` the batch holds ``S`` slices (slice-major), and
 in train mode each slice gets its own BatchNorm statistics and its own
 spectral-norm sigma, as ``S`` sequential torch forwards would. In eval every
 per-timestep block is batch-independent, so ``steps`` changes nothing there.
+
+The generator's blocks and the context stack also take ``space=`` (a
+:class:`~..parallel.spatial.SpaceLayout`, eval only): ``x`` is then this
+rank's stripe of an H-sharded field. Their 3x3 convs exchange halo rows,
+the GBlock kernel runs on a window of rows (:meth:`GBlock.forward`), and
+everything else (1x1 convs, BatchNorm, pooling, pixel shuffles, upsampling)
+runs on the stripe as it is. Without it they run the dense code.
 """
 
 from __future__ import annotations
@@ -44,6 +51,12 @@ class GBlock(nn.Module):
     computed in the parameters' dtype; the kernels are cast to ``x``'s dtype
     and the affines are not, so a bf16 ``x`` runs the bf16 kernel. Train mode
     has no fold (BN uses batch statistics) and runs the plain layers.
+
+    Under a space layout the kernel runs on the stripe and the 2 rows a side
+    that its two 3x3 convs reach (:func:`~..parallel.spatial.halo_window`,
+    clipped to the field), and those rows are cropped from its output: the
+    rows they spoil at a window's inner edge are the borrowed ones, and at
+    the field's edge the kernel's SAME padding is the field's.
     """
 
     def __init__(
@@ -67,15 +80,20 @@ class GBlock(nn.Module):
             input_channels, output_channels, 3, padding=1, spectral_norm=True, sn_eps=eps
         )
 
-    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
         if not self.training:
-            y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(),
-                             *fold_gblock_variables(self, x.dtype))
-            return y.permute(0, 3, 1, 2)
-        sc = self.conv_1x1(x, steps) if x.shape[1] != self.last_conv_3x3.out_channels else x
-        h = self.first_conv_3x3(torch.relu(self.bn1(x, steps)), steps)
-        h = self.last_conv_3x3(torch.relu(self.bn2(h, steps)), steps)
+            if space is None:
+                return self._fused(x)
+            xw, top, bottom = space.window(x, 2)
+            return self._fused(xw)[:, :, top:xw.shape[2] - bottom]
+        sc = self.conv_1x1(x, steps, space) if x.shape[1] != self.last_conv_3x3.out_channels else x
+        h = self.first_conv_3x3(torch.relu(self.bn1(x, steps)), steps, space)
+        h = self.last_conv_3x3(torch.relu(self.bn2(h, steps)), steps, space)
         return h + sc
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *fold_gblock_variables(self, x.dtype))
+        return y.permute(0, 3, 1, 2)
 
 
 class UpsampleGBlock(nn.Module):
@@ -102,11 +120,11 @@ class UpsampleGBlock(nn.Module):
             input_channels, output_channels, 3, padding=1, spectral_norm=True, sn_eps=eps
         )
 
-    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
-        sc = self.conv_1x1(upsample_nearest_2x(x), steps)
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
+        sc = self.conv_1x1(upsample_nearest_2x(x), steps, space)
         y = upsample_nearest_2x(torch.relu(self.bn1(x, steps)))
-        y = torch.relu(self.bn2(self.first_conv_3x3(y, steps), steps))
-        return self.last_conv_3x3(y, steps) + sc
+        y = torch.relu(self.bn2(self.first_conv_3x3(y, steps, space), steps))
+        return self.last_conv_3x3(y, steps, space) + sc
 
 
 class DBlock(nn.Module):
@@ -137,15 +155,15 @@ class DBlock(nn.Module):
             output_channels, output_channels, 3, padding=1, spectral_norm=True
         )
 
-    def forward(self, x: torch.Tensor, steps: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
         if self.use_sc_conv:
-            x1 = self.conv_1x1(x, steps)
+            x1 = self.conv_1x1(x, steps, space)
             if not self.keep_same_output:
                 x1 = avg_pool(x1, 2)
         else:
             x1 = x
         h = torch.relu(x) if self.first_relu else x
-        h = self.last_conv_3x3(torch.relu(self.first_conv_3x3(h, steps)), steps)
+        h = self.last_conv_3x3(torch.relu(self.first_conv_3x3(h, steps, space)), steps, space)
         if not self.keep_same_output:
             h = avg_pool(h, 2)
         return x1 + h
@@ -207,16 +225,16 @@ class ContextConditioningStack(nn.Module, HubMixin):
         self.conv3 = conv(oc * ic, (oc // 2) * ic, 3, padding=1, spectral_norm=True)
         self.conv4 = conv(oc * 2 * ic, oc * ic, 3, padding=1, spectral_norm=True)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, space=None) -> Tuple[torch.Tensor, ...]:
         b, t = x.shape[:2]
         h = space_to_depth(x, 2).transpose(0, 1).flatten(0, 1)  # (T*B, 4C, H/2, W/2)
         states = []
         for block, mix in ((self.d1, self.conv1), (self.d2, self.conv2),
                            (self.d3, self.conv3), (self.d4, self.conv4)):
-            h = block(h, steps=t)
+            h = block(h, steps=t, space=space)
             # (T*B, c, h, w) -> (B, c, T, h, w) -> (B, c*T, h, w): channel order (c, t).
             s = h.unflatten(0, (t, b)).permute(1, 2, 0, 3, 4).flatten(1, 2)
-            states.append(torch.relu(mix(s)))
+            states.append(torch.relu(mix(s, space=space)))
         return tuple(states)
 
 
@@ -227,7 +245,8 @@ class LatentConditioningStack(nn.Module, HubMixin):
     element shares one draw. ``shape`` is ``(C, H, W)`` of the latent; the
     output is ``(1, output_channels, H, W)`` (or batch ``S`` for ``S`` given
     latents). Pass ``z`` (NCHW) for deterministic results, or a
-    ``torch.Generator`` for the draw.
+    ``torch.Generator`` for the draw. It reads no input rows, so a sharded
+    forward runs it whole on every rank, from the same ``z`` or seed.
     """
 
     def __init__(

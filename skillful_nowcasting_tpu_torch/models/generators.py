@@ -31,7 +31,11 @@ class Sampler(nn.Module, HubMixin):
 
     ``forward(states, latent)`` takes the four NCHW conditioning states
     (largest spatial first) and the latent ``(1 or B, latent_channels, h, w)``
-    and returns ``(B, forecast_steps, output_channels, H, W)``.
+    and returns ``(B, forecast_steps, output_channels, H, W)``. With
+    ``space=`` (eval only) the states and the output are this rank's stripes
+    of an H-sharded field and the latent is whole; the layout goes to each
+    level's ConvGRU, GBlock and UpsampleGBlock, and the head
+    (BN-ReLU-1x1-``depth_to_space``) runs on the stripe.
     """
 
     def __init__(
@@ -62,7 +66,7 @@ class Sampler(nn.Module, HubMixin):
         self.conv_1x1 = conv2d(lc // 16, 4 * output_channels, 1, spectral_norm=True)
 
     def forward(
-        self, conditioning_states: Sequence[torch.Tensor], latent: torch.Tensor
+        self, conditioning_states: Sequence[torch.Tensor], latent: torch.Tensor, space=None
     ) -> torch.Tensor:
         batch = conditioning_states[0].shape[0]
         # Quirk Q2: the latent has batch 1; repeat it over the real batch.
@@ -74,16 +78,16 @@ class Sampler(nn.Module, HubMixin):
             gru = getattr(self, f"convGRU{i + 1}")
             init_state = conditioning_states[3 - i]
             if i == 0:
-                seq = gru(h, init_state, n_steps=self.forecast_steps, x_static=True)
+                seq = gru(h, init_state, n_steps=self.forecast_steps, x_static=True, space=space)
             else:
-                seq = gru(h, init_state)
+                seq = gru(h, init_state, space=space)
             t, b = seq.shape[:2]
-            x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1), t)
-            x = getattr(self, f"g{i + 1}")(x, t)
-            x = getattr(self, f"up_g{i + 1}")(x, t)
+            x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1), t, space)
+            x = getattr(self, f"g{i + 1}")(x, t, space)
+            x = getattr(self, f"up_g{i + 1}")(x, t, space)
             h = x.unflatten(0, (t, b))  # (T, B, C, H, W)
         # Output head per timestep: BN -> ReLU -> SN 1x1 -> PixelShuffle(2).
-        x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1), t)), t)
+        x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1), t)), t, space)
         x = depth_to_space(x, 2).unflatten(0, (t, b))
         return x.transpose(0, 1)  # (B, T, C, H, W)
 

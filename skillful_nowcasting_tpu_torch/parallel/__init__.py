@@ -6,7 +6,8 @@ insert the collectives. Here every rank is a process (``torchrun``), the
 collectives are explicit ``torch.distributed`` calls: the gradient and state
 averages of the data-parallel step (:mod:`.dp`), the all-reduce that
 stitches a mesh-sharded tiled nowcast (``inference.tiled_nowcast_device``),
-and the halo rows of a spatially sharded conv (:mod:`.spatial`).
+and the halo rows of the spatially sharded convs and generator forward
+(:mod:`.spatial`).
 """
 
 from .dp import make_dp_eval_step, make_dp_generate, make_dp_train_step
@@ -14,19 +15,30 @@ from .mesh import (
     Mesh,
     all_reduce_mean_,
     gather_rows,
+    gather_space,
     init_distributed,
     make_mesh,
     replicate,
     shard_batch,
 )
-from .spatial import halo_conv2d, halo_exchange, make_spatial_conv, make_spatial_forward
+from .spatial import (
+    SpaceLayout,
+    halo_conv2d,
+    halo_exchange,
+    halo_window,
+    make_spatial_conv,
+    make_spatial_forward,
+)
 
 __all__ = [
     "Mesh",
+    "SpaceLayout",
     "all_reduce_mean_",
     "gather_rows",
+    "gather_space",
     "halo_conv2d",
     "halo_exchange",
+    "halo_window",
     "init_distributed",
     "make_dp_eval_step",
     "make_dp_generate",

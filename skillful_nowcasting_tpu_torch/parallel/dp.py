@@ -15,8 +15,10 @@ batch. Every rank uses the same draws, train-mode BatchNorm is synchronised
 over the ranks, and with equal local batches the averaged gradient is the
 global batch's.
 
-Not ported: ``spatial_axis`` (JAX shards the batches' H axis too and lets
-GSPMD partition the whole step); it raises ``NotImplementedError``.
+Not ported: ``spatial_axis`` in the steps (JAX shards the batches' H axis
+too and lets GSPMD partition the whole step); it raises
+``NotImplementedError``. The H-sharded generator forward is ported:
+:func:`~.spatial.make_spatial_forward`.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ from ..training import make_eval_step, make_train_step
 from .mesh import Mesh, shard_batch
 
 SPATIAL_NOT_PORTED = (
-    "spatial_axis (the batches' H axis sharded over the mesh, the whole step partitioned "
-    "with its conv halos) is not ported to PyTorch; see ROADMAP.md, Queue 1"
+    "spatial_axis in the train and eval steps (the batches' H axis sharded over the mesh, "
+    "the whole step partitioned with its conv halos) is not ported to PyTorch; the H-sharded "
+    "generator forward is (parallel.make_spatial_forward). See ROADMAP.md, Queue 1 item 6"
 )
 
 

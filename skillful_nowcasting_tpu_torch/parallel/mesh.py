@@ -228,17 +228,37 @@ def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     return module
 
 
-def shard_batch(batch, mesh: Mesh):
+def _cut_rows(t: torch.Tensor, dim: int, n: int, index: int, axis: str) -> torch.Tensor:
+    """Part ``index`` of ``n`` equal contiguous parts of ``t`` along ``dim`` (the ``axis`` ranks' share)."""
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"{'a batch' if axis == 'data' else 'an H'} of {size} does not divide "
+                         f"over {n} {axis} ranks")
+    per = size // n
+    return t.narrow(dim, index * per, per)
+
+
+def shard_batch(batch, mesh: Mesh, spatial_axis: Optional[str] = None):
     """This rank's contiguous rows (dim 0) of a global batch, on the mesh's device (JAX's ``P("data")``).
 
     ``batch`` is a tensor or array, or a tuple or list of them. The batch
-    must divide evenly over the data axis.
+    must divide evenly over the data axis. With ``spatial_axis="space"``
+    each tensor's H (its second-to-last axis) is cut too, into the space
+    axis' contiguous stripes (JAX's ``P("data", None, "space")``); H must
+    divide evenly over it.
     """
+    if spatial_axis not in (None, "space"):
+        raise ValueError(f"spatial_axis must be 'space' or None, got {spatial_axis!r}")
     if isinstance(batch, (tuple, list)):
-        return type(batch)(shard_batch(b, mesh) for b in batch)
-    t = torch.as_tensor(batch)
-    n = mesh.shape["data"]
-    if t.shape[0] % n:
-        raise ValueError(f"a batch of {t.shape[0]} does not divide over {n} data ranks")
-    per = t.shape[0] // n
-    return t[mesh.data_rank * per:(mesh.data_rank + 1) * per].to(mesh.device)
+        return type(batch)(shard_batch(b, mesh, spatial_axis) for b in batch)
+    t = _cut_rows(torch.as_tensor(batch), 0, mesh.shape["data"], mesh.data_rank, "data")
+    if spatial_axis is not None:
+        t = _cut_rows(t, -2, mesh.shape["space"], mesh.space_rank, "space")
+    return t.to(mesh.device)
+
+
+def gather_space(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The space group's stripes of ``y`` stacked back along H (the second-to-last axis), on every rank."""
+    if mesh.space_group is None:
+        return y
+    return torch.cat(list(gather_rows(y.contiguous(), mesh.space_group)), dim=-2)
