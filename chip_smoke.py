@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel, scoring and spatially sharded paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel, scoring and spatially sharded paths (forward and train) once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
@@ -157,7 +157,31 @@ the top kernels by device time) and prints no result line.
    host seconds of a forward (gloo stages them through the host) and the
    rollout's recompute factor per level (window rows / stripe rows); (e) the
    same in bf16 at 1024^2. Two ranks on one card measure the semantics and
-   the layout's costs, not scaling.
+   the layout's costs, not scaling. A diagnostic on rank 0 at 512^2 bf16:
+   the first modules whose dense output for the sample alone (B=1) parts
+   from the same sample's in a B=2 batch, in the order the modules finish.
+20. The H-sharded train and eval steps (``make_dp_train_step`` /
+   ``make_dp_eval_step(mode="pjit", spatial_axis="space")``) on a ``(data=1,
+   space=2)`` mesh. (a) The tiny config, float64, R1, explicit draws: the
+   plain step on the card here, then two ranks of this script on ``cuda:0``
+   (``gloo``) run the step on their stripes on the card and on the CPU: card
+   ranks against CPU ranks and against the plain step, <= 1e-3 of each
+   tensor (phase 8's floor). (b) In the same ranks, the paper config at
+   256^2, B=2, seeded weights, desaturated D: one f32 SGD step (TF32 off)
+   against rank 0's dense step on the same draws (the six ``train/*`` <=
+   1e-3 relative, the first D update's gradients <= 1e-3 of each tensor, the
+   G gradients' gap printed beside phase 8's f32 rounding), one bf16 step
+   with R1 (finite; every parameter and buffer bit-identical on both ranks,
+   by a gathered checksum; no kernel launched, as in every train step), one
+   f32 eval step (<= 1e-4 relative of the dense one; 4 / 8 launches a
+   generator forward, on windows); per rank the seconds of each, its peak
+   memory above what was allocated before it, and the halo calls, bytes and
+   host seconds, forward and backward apart. (c) In the same ranks,
+   ``Trainer(mesh, dp_mode="pjit", spatial_axis="space")`` at the tiny
+   config in f32: two steps on card-rendered synthetic radar, the validation
+   at step 2 with ``val_skill`` (4 / 8 launches a forward of its eval step
+   and skill ensemble, on windows; finite logged metrics). Two ranks on one
+   card, again: semantics and costs, not scaling.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -574,7 +598,7 @@ def train_full_width(torch, dev, card, launch_counters) -> dict:
     return {"train_step": train_launches, "eval_step": eval_launches}
 
 
-def train_parity(torch, dev) -> None:
+def train_parity(torch, dev) -> dict:
     """Phase 8: one tiny train step on the card and on the CPU, same weights and draws, SGD."""
     from skillful_nowcasting_tpu_torch import DGMR, training
     from skillful_nowcasting_tpu_torch.utils import random_fill
@@ -628,9 +652,12 @@ def train_parity(torch, dev) -> None:
         fail(f"card and CPU R1 train steps differ by {worst_all[0]} > {TRAIN_TOL}")
     # What f32 rounding alone does to one step: the CPU's f32 step against its f64 one.
     f32, f64 = cpu_steps[torch.float32], cpu_steps[torch.float64]
+    rounding = {}
     for group in f64:
         top = worst(f32[group], f64[group])
+        rounding[group] = top[0]
         print(f"train rounding (CPU float32 vs float64), {group}: worst {top[0]:.3e} at {top[1]}")
+    return rounding
 
 
 def carried_state_is_f32(torch, state) -> bool:
@@ -1714,7 +1741,7 @@ def dp_rank_main(args) -> None:
         torch.distributed.destroy_process_group()
 
 
-def run_ranks(phase: int, timeout: float, prefix: str) -> list:
+def run_ranks(phase: int, timeout: float, prefix: str, extra=()) -> list:
     """Start ``DP_RANKS`` ranks of this script for ``phase`` (``--dp-rank``) on cuda:0; their results.
 
     Each rank writes ``rank<r>.json`` into a scratch directory. A rank that
@@ -1729,7 +1756,7 @@ def run_ranks(phase: int, timeout: float, prefix: str) -> list:
             logs.append(open(os.path.join(root, f"rank{r}.log"), "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-port",
-                 str(port), "--dp-dir", root, "--dp-phase", str(phase)], stdout=logs[-1],
+                 str(port), "--dp-dir", root, "--dp-phase", str(phase), *extra], stdout=logs[-1],
                 stderr=subprocess.STDOUT, env={**os.environ, "OMP_NUM_THREADS": "4"}))
         t0 = time.perf_counter()
         while any(p.poll() is None for p in procs):  # a failed rank fails the phase at once
@@ -2079,6 +2106,51 @@ def space_levels(size: int, steps: int) -> list:
     return out
 
 
+def first_parting_layers(torch, model, x, z, say, tag: str, show: int = 5) -> None:
+    """Where a dense forward of one sample starts to depend on its batch: B=1 against B=2.
+
+    Every module's output is recorded in the order the modules finish, for
+    ``x`` alone and for ``x`` twice in a batch; sample 0's part of each (the
+    batch axis is the first one that doubles, T-major folds included) is
+    compared bit for bit, and the first modules whose outputs part are printed
+    with their largest difference over their largest value.
+    """
+    outputs, hooks = [], []
+
+    def record(name):
+        def hook(module, _inputs, out):
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    outputs.append((name, type(module).__name__, t))
+        return hook
+
+    for name, module in model.named_modules():
+        hooks.append(module.register_forward_hook(record(name or "model")))
+    try:
+        with torch.inference_mode():
+            model(x, z=z)
+            alone, outputs[:] = list(outputs), []
+            model(torch.cat([x, x]), z=z)
+            paired = list(outputs)
+    finally:
+        for h in hooks:
+            h.remove()
+        outputs.clear()
+    parted = []
+    for (name, kind, one), (_, _, two) in zip(alone, paired):
+        if one.shape != two.shape:  # the first axis that doubles holds the batch, innermost
+            d = next(i for i, (a, b) in enumerate(zip(one.shape, two.shape)) if b == 2 * a)
+            two = two.unflatten(d, (one.shape[d], 2)).select(d + 1, 0)
+        if not torch.equal(one, two):
+            diff = (one.float() - two.float()).abs().max().item()
+            parted.append((name, kind, diff / max(one.float().abs().max().item(), 1e-30)))
+    say(f"{tag}: the sample alone (B=1) against the same sample in a B=2 batch, dense: "
+        f"{len(parted)} of {len(alone)} module outputs part; the first "
+        f"{[(n, kind, f'{rel:.3e}') for n, kind, rel in parted[:show]]} (module, type, max|diff| "
+        "over its max|B=1|, in the order the modules finish)")
+    del alone, paired
+
+
 def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
     """19b-d on one rank for one field and dtype: launches, the sharded forward against the dense one."""
     import skillful_nowcasting_tpu_torch.layers.convgru as convgru_mod
@@ -2088,6 +2160,7 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
         halo_exchange,
         halo_window,
         make_spatial_forward,
+        reset_halo_counters,
     )
 
     bf16 = dtype == torch.bfloat16
@@ -2096,10 +2169,6 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
     x = x.to(dtype)
     fwd = make_spatial_forward(model, mesh)
     comms = (halo_window, halo_exchange)
-
-    def reset_comms():
-        for fn in comms:
-            fn.calls, fn.bytes, fn.seconds = 0, 0, 0.0
 
     # (c) The first forward, counted from 0: 4 / 8 launches of x's dtype, the windows' rows.
     windows = {"rollout": [], "gblock": []}  # (rows, W, C) of each kernel's input
@@ -2115,7 +2184,7 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
     common_mod.gblock_fused = watched("gblock", gblock, 0)  # x (N, H, W, Cin)
     for counter in counters:
         counter.launches = 0
-    reset_comms()
+    reset_halo_counters()
     try:
         with torch.inference_mode():
             y = fwd(x, z=z)
@@ -2148,7 +2217,7 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30
 
-    reset_comms()
+    reset_halo_counters()
     y, sec, peak = timed(lambda: fwd(x, z=z))
     comm = {fn.__name__: (fn.calls, fn.bytes, round(fn.seconds, 4)) for fn in comms}
     with torch.inference_mode():
@@ -2173,6 +2242,8 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
                   f"{frame_err(again, dense):.3e}, {100 * (again == dense).float().mean().item():.4f}% "
                   "bit-equal")
         del again
+        if size == SPACE_SIZE and mesh.rank == 0:  # where that spread starts (the card is shared)
+            first_parting_layers(torch, model, x, z, say, tag)
     else:
         err = (whole - dense).abs().max().item() / dense.abs().max().item()
         tol, of, spread = SPACE_F32_TOL, "of max|dense|", ""
@@ -2227,6 +2298,310 @@ def spatial_forward(torch) -> dict:
             for path, counts in res["launches"].items()}
 
 
+# ---------------------------------------------------------------------------
+# 20. The H-sharded train and eval steps on the two ranks of a (data=1, space=2) mesh.
+# ---------------------------------------------------------------------------
+SPACE_TRAIN_TIMEOUT = 600  # seconds for both ranks together
+SPACE_STEP_TOL = 1e-3  # 20b f32, sharded vs dense: each train/* relative, each first-D-update grad
+SPACE_EVAL_TOL = 1e-4  # 20b f32 eval metrics, sharded vs dense, relative
+
+
+def space_tiny_step(torch, dev, mesh, base, x, y, draws) -> dict:
+    """One tiny float64 SGD step with R1 on ``dev``: on ``mesh``'s stripes, or the plain step (``None``)."""
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.parallel import make_dp_train_step, shard_batch
+
+    model = DGMR(**TINY, device=dev)
+    model.load_state_dict(base.state_dict())
+    model.double()
+    g, d = training.split_params(model)
+    state = training.init_train_state(
+        model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
+    if mesh is None:
+        m = training.make_train_step(model, return_grads=True, r1_gamma=R1_GAMMA)(
+            state, x, y, draws=draws)
+    else:
+        step = make_dp_train_step(model, mesh, mode="pjit", spatial_axis="space",
+                                  return_grads=True, r1_gamma=R1_GAMMA)
+        m = step(state, *shard_batch((x, y), mesh, spatial_axis="space"), draws=draws)
+    cpu = lambda v: v.detach().to("cpu", torch.float64)  # noqa: E731
+    return {"losses": {k: cpu(v).reshape(1) for k, v in m.items() if k.startswith("train/")},
+            "g grads": {k: cpu(v) for k, v in m["g_grads"].items()},
+            "d grads": {k: cpu(v) for k, v in m["d_grads"].items()},
+            "params": {k: cpu(p) for k, p in model.named_parameters()}}
+
+
+def space_tiny_inputs(torch):
+    """20a's seeded weights (desaturated D), B=2 batch and explicit draws, all on the host."""
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    base = training.desaturate_discriminator(
+        random_fill(DGMR(**TINY, device="cpu"), torch.Generator().manual_seed(120)))
+    gen = torch.Generator().manual_seed(121)
+    x = torch.rand((2, 4, 1, 64, 64), generator=gen).double()
+    y = torch.rand((2, 2, 1, 64, 64), generator=gen).double()
+    return base, x, y, training.draw_step(base, 6, torch.Generator().manual_seed(122))
+
+
+def space_tiny_parity(torch, rank, dev, ref_path, say) -> None:
+    """20a in a rank: the sharded tiny step on 2 card ranks against 2 CPU ranks and the parent's
+    plain step on the card."""
+    from skillful_nowcasting_tpu_torch.parallel import make_mesh
+
+    base, x, y, draws = space_tiny_inputs(torch)
+    card = space_tiny_step(torch, dev, make_mesh(1, n_space=DP_RANKS, device=dev), base, x, y,
+                           draws)
+    host = space_tiny_step(torch, "cpu", make_mesh(1, n_space=DP_RANKS, device="cpu"), base, x,
+                           y, draws)
+    plain = torch.load(ref_path, weights_only=False)
+    for what, want in (("2 CPU ranks", host), ("the plain step at B=2 on the card", plain)):
+        worst = max(worst_rel(card[g], want[g]) + (g,) for g in want)
+        say(f"20a sharded float64 R1 step (2 card ranks, one tiny SGD step, H 32 rows a rank) vs "
+            f"{what}: worst {worst[0]:.3e} of the tensor's max-abs at {worst[2]} {worst[1]}")
+        if not worst[0] <= TRAIN_TOL:
+            fail(f"20a: the sharded step differs from {what} by {worst[0]} > {TRAIN_TOL}")
+
+
+def space_comm() -> dict:
+    """The halo counters since the last reset: (calls, bytes received, host seconds), forward and backward."""
+    from skillful_nowcasting_tpu_torch.parallel import halo_exchange, halo_window
+
+    return {"halo_exchange forward": (halo_exchange.calls, halo_exchange.bytes,
+                                      round(halo_exchange.seconds, 4)),
+            "halo_exchange backward": (halo_exchange.backward_calls, halo_exchange.backward_bytes,
+                                       round(halo_exchange.backward_seconds, 4)),
+            "halo_window": (halo_window.calls, halo_window.bytes, round(halo_window.seconds, 4))}
+
+
+def space_train_full_width(torch, rank, dev, counters, say) -> dict:
+    """20b: the paper config at 256^2, B=2, on a (data=1, space=2) mesh: an f32 step against the
+    dense step, a bf16 R1 step, an f32 eval step against the dense one; rank 0 runs the dense ones."""
+    import copy
+
+    import torch.distributed as dist
+
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.parallel import (
+        gather_rows,
+        make_dp_eval_step,
+        make_dp_train_step,
+        make_mesh,
+        reset_halo_counters,
+        shard_batch,
+    )
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    mesh = make_mesh(1, n_space=DP_RANKS, device=dev)
+    base = training.desaturate_discriminator(
+        random_fill(DGMR(device=dev), torch.Generator().manual_seed(130)))
+    size, steps = base.output_shape, base.forecast_steps
+    gen = torch.Generator().manual_seed(131)
+    x = torch.rand((2, 4, 1, size, size), generator=gen).to(dev)
+    y = torch.rand((2, steps, 1, size, size), generator=gen).to(dev)
+    xs, ys = shard_batch((x, y), mesh, spatial_axis="space")
+
+    def sgd(model):
+        g, d = training.split_params(model)
+        return training.init_train_state(
+            model, (torch.optim.SGD(g.values(), lr=5e-5), torch.optim.SGD(d.values(), lr=2e-4)))
+
+    def timed(fn, together=True):
+        """``fn()``, its seconds and its peak memory (GiB) above what was allocated before it.
+
+        ``together``: both ranks start it at once (a rank-0-only run does not wait).
+        """
+        if together:
+            dist.barrier()
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base_bytes) / 2**30)
+
+    def checksum(model):  # every rank's parameters and buffers bit for bit
+        rows = gather_rows(bits_checksum(torch, [*model.parameters(), *model.buffers()], dev),
+                           mesh.group)
+        return bool((rows == rows[0]).all())
+
+    out = {}
+    # (i) One f32 step (TF32 off) on stripes, against the dense step of rank 0 on the same draws.
+    draws = training.draw_step(base, 4 + steps, torch.Generator().manual_seed(132))
+    model = copy.deepcopy(base)
+    step = make_dp_train_step(model, mesh, mode="pjit", spatial_axis="space", return_grads=True)
+    for counter in counters:
+        counter.launches = 0
+    reset_halo_counters()
+    m, sec, peak = timed(lambda: step(sgd(model), xs, ys, draws=draws))
+    comm, launches = space_comm(), launch_counts(counters)
+    equal = checksum(model)
+    say(f"20b f32 train step on stripes of {size // DP_RANKS} rows: {sec:.3f} s, peak {peak:.3f} "
+        f"GiB above the inputs, launches {launches} (expected 0 each), replicas bit-identical "
+        f"{equal}; halo (calls, bytes received, host seconds) {comm} ({SPACE_NOTE})")
+    if any(launches.values()) or not equal:
+        fail(f"20b f32 step: launches {launches}, replicas equal {equal}")
+    if rank == 0:
+        dense_model = copy.deepcopy(base)
+        dense = training.make_train_step(dense_model, return_grads=True)
+        want, dense_sec, dense_peak = timed(lambda: dense(sgd(dense_model), x, y, draws=draws),
+                                            together=False)
+        losses = {k: abs(m[k].item() - want[k].item()) / abs(want[k].item())
+                  for k in want if k.startswith("train/")}
+        worst_loss = max((v, k) for k, v in losses.items())
+        d_first = worst_rel({k: v[0] for k, v in m["d_grads"].items()},
+                            {k: v[0] for k, v in want["d_grads"].items()})
+        g_gap = worst_rel(m["g_grads"], want["g_grads"])
+        say(f"20b f32 step, sharded vs dense (the same draws, SGD): train/* worst {worst_loss[0]:.3e} "
+            f"relative at {worst_loss[1]}, the first D update's gradients worst {d_first[0]:.3e} of "
+            f"the tensor's max-abs at {d_first[1]} (limits {SPACE_STEP_TOL}); the G gradients "
+            f"{g_gap[0]:.3e} at {g_gap[1]} (no limit: one D/D/G cycle amplifies f32 rounding, "
+            f"phase 8's 'train rounding' lines); dense step {dense_sec:.3f} s, peak "
+            f"{dense_peak:.3f} GiB above the inputs")
+        if len(losses) != 6 or not (worst_loss[0] <= SPACE_STEP_TOL and
+                                    d_first[0] <= SPACE_STEP_TOL):
+            fail(f"20b f32 sharded step vs dense: losses {losses}, first D grads {d_first}")
+        out["g_gap"] = g_gap[0]
+        del dense_model, dense, want
+    del m
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    # (ii) One bf16 step with R1 on stripes (Adam, from the seeded weights: SGD's step above, at
+    # the random weights' G gradient norm, leaves G far from them): finite, replicas bit-identical,
+    # no kernel launched.
+    model = copy.deepcopy(base)
+    step = make_dp_train_step(model, mesh, mode="pjit", spatial_axis="space",
+                              compute_dtype=torch.bfloat16, r1_gamma=R1_GAMMA)
+    for counter in counters:
+        counter.launches = 0
+    reset_halo_counters()
+    m, sec, peak = timed(lambda: step(training.init_train_state(model), xs, ys,
+                                      torch.Generator().manual_seed(133)))
+    comm, launches = space_comm(), launch_counts(counters)
+    values = {k: v.item() for k, v in m.items()}
+    equal = checksum(model)
+    say(f"20b bf16 R1 train step on stripes: {sec:.3f} s, peak {peak:.3f} GiB above the inputs, "
+        f"d_r1 {values['train/d_r1']:.6e}, launches {launches} (expected 0 each), replicas "
+        f"bit-identical {equal}; halo {comm}")
+    if not all(math.isfinite(v) for v in values.values()) or any(launches.values()) or not equal:
+        fail(f"20b bf16 R1 step: metrics {values}, launches {launches}, replicas equal {equal}")
+    del m
+    torch.cuda.empty_cache()
+
+    # (iii) One f32 eval step on stripes: 4 / 8 launches a generator forward, on windows.
+    ev = make_dp_eval_step(model, mesh, mode="pjit", spatial_axis="space")
+    state = training.init_train_state(model)
+    forwards = 2 + model.generation_steps
+    for counter in counters:
+        counter.launches = 0
+    reset_halo_counters()
+    m, sec, peak = timed(lambda: ev(state, xs, ys, torch.Generator().manual_seed(134)))
+    comm, launches = space_comm(), launch_counts(counters)
+    expected = expected_launches(forwards)
+    say(f"20b f32 eval step on stripes: {sec:.3f} s, peak {peak:.3f} GiB above the inputs, "
+        f"{forwards} generator forwards, launches {launches}, expected {expected}; halo {comm}")
+    if launches != expected or not comm["halo_window"][0] > 0:
+        fail(f"20b eval step: launches {launches} (expected {expected}), halo {comm}")
+    out["launches"] = launches
+    if rank == 0:
+        want, dense_sec, _ = timed(lambda: training.make_eval_step(model)(
+            state, x, y, torch.Generator().manual_seed(134)), together=False)
+        errs = {k: abs(m[k].item() - want[k].item()) / abs(want[k].item()) for k in want}
+        say(f"20b f32 eval step, sharded vs dense: worst {max(errs.values()):.3e} relative "
+            f"(limit {SPACE_EVAL_TOL}); dense {dense_sec:.3f} s")
+        if not max(errs.values()) <= SPACE_EVAL_TOL:
+            fail(f"20b eval step, sharded vs dense: {errs}")
+    dist.barrier()  # rank 1 waits for rank 0's dense step
+    return out
+
+
+def space_trainer_tiny(torch, rank, dev, counters, say) -> dict:
+    """20c: ``Trainer(mesh, dp_mode="pjit", spatial_axis="space")`` at the tiny config in f32: two
+    steps, the validation at step 2 with the skill metrics (4 / 8 launches a forward, on windows)."""
+    import json as json_mod
+
+    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.parallel import halo_window, make_mesh, reset_halo_counters
+    from skillful_nowcasting_tpu_torch.trainer import Trainer
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    mesh = make_mesh(1, n_space=DP_RANKS, device=dev)
+    model = training.desaturate_discriminator(
+        random_fill(DGMR(**TINY, device=dev), torch.Generator().manual_seed(140)))
+
+    def data(seed):  # every rank of the space group reads its data rank's batches
+        return synthetic_radar_batches_device(batch_size=2, target_frames=2, size=64, seed=seed,
+                                              device=dev)
+
+    with tempfile.TemporaryDirectory(prefix="dgmr_phase20_trainer_") as root:
+        trainer = Trainer(model, max_steps=2, log_dir=root, log_every=1, val_every=2,
+                          val_skill=True, prefetch=0, seed=141, mesh=mesh, dp_mode="pjit",
+                          spatial_axis="space")
+        for counter in counters:
+            counter.launches = 0
+        reset_halo_counters()
+        t0 = time.perf_counter()
+        state = trainer.fit(data(142), data(143))
+        sec = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        lines = []
+        if rank == 0:
+            with open(os.path.join(root, "metrics.jsonl")) as f:
+                lines = [json_mod.loads(line) for line in f]
+    forwards = 2 + model.generation_steps + model.num_samples  # the eval step's, the skill's
+    expected = expected_launches(forwards)
+    values = [v for line in lines for k, v in line.items() if k != "step"]
+    say(f"20c Trainer(mesh=(1, 2), dp_mode='pjit', spatial_axis='space'), tiny, f32: step "
+        f"{state.step} in {sec:.3f} s, {len(lines)} logged lines on rank 0, validation launches "
+        f"{launches}, expected {expected} ({forwards} forwards), {halo_window.calls} halo windows")
+    if state.step != 2 or launches != expected or not halo_window.calls > 0 or (
+            rank == 0 and (len(lines) != 3 or not all(math.isfinite(v) for v in values))):
+        fail(f"20c sharded Trainer: step {state.step}, launches {launches}, lines {lines}")
+    return launches
+
+
+def space_train_rank_main(args) -> None:
+    """One rank of phase 20 (``--dp-rank``, ``--dp-phase 20``): 20a, 20b; writes its results as JSON."""
+    torch, rank, dev, counters, say = rank_setup(args, "space train rank")
+
+    try:
+        t0 = time.perf_counter()
+        space_tiny_parity(torch, rank, dev, args.dp_ref, say)
+        t1 = time.perf_counter()
+        out = space_train_full_width(torch, rank, dev, counters, say)
+        t2 = time.perf_counter()
+        out["trainer_launches"] = space_trainer_tiny(torch, rank, dev, counters, say)
+        say(f"20 seconds in this rank: a {t1 - t0:.1f}, b {t2 - t1:.1f}, "
+            f"c {time.perf_counter() - t2:.1f}")
+        with open(os.path.join(args.dp_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def space_train(torch, dev, rounding: dict) -> dict:
+    """Phase 20: 20a's plain step here on the card, then two space ranks of this script (20a, 20b)."""
+    import gc
+
+    base, x, y, draws = space_tiny_inputs(torch)
+    plain = space_tiny_step(torch, dev, None, base, x, y, draws)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dgmr_phase20_ref_") as root:
+        ref = os.path.join(root, "plain.pt")
+        torch.save(plain, ref)
+        results = run_ranks(20, SPACE_TRAIN_TIMEOUT, "space train rank", ["--dp-ref", ref])
+    print(f"20b the sharded f32 step's G gradients vs the dense step's: {results[0]['g_gap']:.3e} "
+          f"of the tensor's max-abs, beside phase 8's f32 rounding of one tiny step (CPU float32 "
+          f"vs float64) {rounding['g grads']:.3e}")
+    return {f"space_train_{path}_rank{r}": res[key] for r, res in enumerate(results)
+            for path, key in (("eval", "launches"), ("trainer_validation", "trainer_launches"))}
+
+
 _T0 = time.perf_counter()
 _LAST = [_T0]
 
@@ -2250,9 +2625,10 @@ def main() -> None:
     parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-phase", type=int, default=17, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-ref", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
-    if args.dp_rank is not None:  # one rank of phase 17 or 19, started by the phase itself
-        (spatial_rank_main if args.dp_phase == 19 else dp_rank_main)(args)
+    if args.dp_rank is not None:  # one rank of phase 17, 19 or 20, started by the phase itself
+        {17: dp_rank_main, 19: spatial_rank_main, 20: space_train_rank_main}[args.dp_phase](args)
         return
 
     # 1. Device.
@@ -2472,7 +2848,7 @@ def main() -> None:
     stamp("4-6")
     # 7. Training at full width; 8. training parity, card vs CPU.
     by_path = train_full_width(torch, dev, card, counters)
-    train_parity(torch, dev)
+    rounding = train_parity(torch, dev)
 
     stamp("7-8")
     # 9-12. The serving user's paths at full width; 13. their parity, card vs CPU.
@@ -2551,6 +2927,12 @@ def main() -> None:
     by_path.update(spatial_forward(torch))
 
     stamp("19")
+    # 20. The H-sharded train and eval steps: (a) the tiny float64 R1 step's plain reference here,
+    # then two space ranks of this script on cuda:0: (a) that step on stripes, card and CPU ranks;
+    # (b) the paper config at 256^2: f32 and bf16 R1 train steps and an f32 eval step.
+    by_path.update(space_train(torch, dev, rounding))
+
+    stamp("20")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

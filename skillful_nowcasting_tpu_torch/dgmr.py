@@ -130,10 +130,10 @@ class DGMR(nn.Module, HubMixin):
     ) -> torch.Tensor:
         """Generator forward: one nowcast sample; ``z`` is ``(1, 8C, H/32, W/32)``.
 
-        ``space`` (eval only; see :func:`~.parallel.make_spatial_forward`, which
-        passes it) is this rank's :class:`~.parallel.spatial.SpaceLayout`: ``x``
-        and the nowcast are then its stripes of an H-sharded field, and the
-        latent stack runs whole.
+        ``space`` (see :func:`~.parallel.make_spatial_forward` and the
+        H-sharded steps, which pass it) is this rank's
+        :class:`~.parallel.spatial.SpaceLayout`: ``x`` and the nowcast are then
+        its stripes of an H-sharded field, and the latent stack runs whole.
         """
         states = self.conditioning_stack(x, space=space)
         latent = self.latent_stack(x, z=z, generator=generator)
@@ -159,9 +159,15 @@ class DGMR(nn.Module, HubMixin):
         x: torch.Tensor,
         frame_indices: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        space=None,
     ) -> torch.Tensor:
-        """Spatial + temporal scores ``(B, 2, 1)`` of full sequences ``(B, T, C, H, W)``."""
-        return self.discriminator(x, frame_indices, generator)
+        """Spatial + temporal scores ``(B, 2, 1)`` of full sequences ``(B, T, C, H, W)``.
+
+        With ``space`` the sequences are this rank's stripes of H-sharded
+        fields; the scores are the whole fields', the same on every rank of
+        the space group.
+        """
+        return self.discriminator(x, frame_indices, generator, space)
 
     @property
     def config(self) -> dict:

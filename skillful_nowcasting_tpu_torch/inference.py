@@ -35,8 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .metrics import crps_ensemble, csi, csi_counts, ensemble_mean_mse, pooled_crps
-from .models.common import draw_latents
+from .metrics import crps_ensemble, csi_counts, ensemble_mean_mse, pooled_crps
+from .models.common import DRAWS_NOT_SHARED, draw_latents
 
 
 def make_generate(
@@ -44,6 +44,7 @@ def make_generate(
     num_samples: Optional[int] = None,
     shared_context: bool = False,
     microbatch: Optional[int] = 16,
+    space=None,
 ) -> Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]:
     """Ensemble generation: ``generate(x, generator) -> (S, B, T, C, H, W)``.
 
@@ -63,8 +64,17 @@ def make_generate(
     the default device. Compute and the result follow ``x.dtype`` (float32,
     or bfloat16 through the kernels' bf16 variants), as in JAX; the latents
     are drawn in float32 and cast to it.
+
+    ``space`` (a :class:`~.parallel.spatial.SpaceLayout`) makes ``x`` this
+    rank's stripe of H-sharded fields and the nowcasts its stripes: every
+    rank of the space group must pass an equally seeded ``generator``. It
+    takes one forward per sample (``shared_context=False``).
     """
     n = num_samples if num_samples is not None else model.num_samples
+    if space is not None and shared_context:
+        raise ValueError("an H-sharded ensemble runs one forward per sample: "
+                         "shared_context=False")
+    layout = {} if space is None else {"space": space}
     if microbatch is None:
         cap = None
     else:
@@ -73,10 +83,12 @@ def make_generate(
     def one_chunk(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         if shared_context:
             return model.generate_ensemble(x, n, z=z)
-        return torch.stack([model(x, z=z[s : s + 1]) for s in range(n)])
+        return torch.stack([model(x, z=z[s : s + 1], **layout) for s in range(n)])
 
     @torch.inference_mode()
     def generate(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if space is not None and generator is None:
+            raise ValueError(DRAWS_NOT_SHARED)
         x = x.to(next(model.parameters()).device)
         z = draw_latents(model.latent_stack.shape, n, generator, x)
         chunks = [x] if cap is None else x.split(cap)
@@ -104,6 +116,7 @@ def make_skill_metrics(
     pools=(1, 4, 16),
     return_counts: bool = False,
     dtype: Optional[torch.dtype] = None,
+    space=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Per-batch skill: ``batch_metrics(images, future, generator) -> {name: 0-d tensor}``.
 
@@ -116,10 +129,17 @@ def make_skill_metrics(
     pools (:func:`evaluate_nowcast`). Batches are ``(B, T, C, H, W)``; the
     forwards run in ``dtype`` (``None``: float32; ``torch.bfloat16`` runs the
     kernels' bf16 variants), the metrics in float32.
+
+    With ``space`` (a :class:`~.parallel.spatial.SpaceLayout`) the batches
+    are this rank's stripes of the fields: the ensemble runs through the
+    H-sharded forward, each mean is the stripes' means averaged over the
+    space group and each CSI comes from the counts summed over it, so every
+    rank returns the whole fields' numbers. Each stripe's height must divide
+    by the largest pool.
     """
     _eval_model(model, dtype)
     dtype = dtype or torch.float32
-    generate = make_generate(model, num_samples=num_samples)
+    generate = make_generate(model, num_samples=num_samples, space=space)
     thresholds = tuple(float(t) for t in thresholds)
     pools = tuple(int(p) for p in pools if int(p) > 1)
 
@@ -134,12 +154,19 @@ def make_skill_metrics(
         }
         for p in pools:
             out[f"crps_pool{p}"] = pooled_crps(samples, future, p).mean()
+        if space is not None:  # equal stripes: the field's mean is the mean of theirs
+            keys = list(out)
+            means = space.sum(torch.stack([out[k] for k in keys])) / space.size
+            out = dict(zip(keys, means))
         if thresholds:
-            cs = csi(mean, future, list(thresholds))
+            counts = csi_counts(mean, future, list(thresholds))
+            if space is not None:
+                counts = space.sum(counts)
+            cs = counts[:, 0] / counts.sum(dim=1).clamp_min(1e-12)
             for i, t in enumerate(thresholds):
                 out[f"csi_{t:g}"] = cs[i]
             if return_counts:
-                out["csi_counts"] = csi_counts(mean, future, list(thresholds))
+                out["csi_counts"] = counts
         return out
 
     return batch_metrics

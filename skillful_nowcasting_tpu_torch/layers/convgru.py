@@ -14,9 +14,10 @@ which launches the hand-written kernel for CUDA tensors. Train mode runs a
 plain step loop instead, with per-step spectral norm: the kernel has no
 backward, and the JAX package does not use its kernel in training either.
 
-Under a space layout (``space=``, eval only) ``h0`` and ``x`` are this
-rank's stripes of an H-sharded field, and the rollout kernel runs once on a
-window of ``2 T + 1`` rows a side (clipped to the field). The rows a
+Under a space layout (``space=``) ``h0`` and ``x`` are this rank's stripes
+of an H-sharded field. The train loop then runs every gate conv of every
+step through the halo (``space.conv``). In eval the rollout kernel runs
+once on a window of ``2 T + 1`` rows a side (clipped to the field). The rows a
 window's inner edge spoils spread 2 rows a step (each step's two dependent
 3x3 convs on ``h``; the input-part conv's 1 row lies inside them), so after
 T steps 2 T rows are wrong and the stripe is exact with a row to spare. At
@@ -32,7 +33,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv2d, convgru_rollout
-from ..ops.conv import SPATIAL_TRAIN_NOT_PORTED
 
 
 class ConvGRUCell(nn.Module):
@@ -97,9 +97,7 @@ class ConvGRU(nn.Module):
         if x_static and n_steps is None:
             raise ValueError("x_static requires n_steps")
         if self.training:
-            if space is not None:
-                raise NotImplementedError(SPATIAL_TRAIN_NOT_PORTED)
-            return self._train_forward(x_seq, hidden_state, n_steps, x_static)
+            return self._train_forward(x_seq, hidden_state, n_steps, x_static, space)
         if space is None:
             return self._rollout(x_seq, hidden_state, n_steps, x_static)
         rows = 2 * (n_steps if x_static else x_seq.shape[0]) + 1
@@ -142,7 +140,7 @@ class ConvGRU(nn.Module):
         )
         return out.permute(0, 1, 4, 2, 3)  # (T, B, C, H, W)
 
-    def _train_forward(self, x_seq, hidden_state, n_steps, x_static):
+    def _train_forward(self, x_seq, hidden_state, n_steps, x_static, space=None):
         """Train mode (``layers/convgru.py:199-270`` in JAX): a plain step loop, never the kernel.
 
         Each step is one train forward of the cell: every gate conv runs one
@@ -151,7 +149,10 @@ class ConvGRU(nn.Module):
         taken up front. The input parts run batched over all steps with the
         raw kernels; autograd runs through the whole loop. The convs and gates
         run in ``x_seq``'s dtype (the power iterations stay in the
-        parameters'), as in JAX.
+        parameters'), as in JAX. Under ``space`` the convs exchange their
+        halos; a static input, whole on every rank (the latent), has its input
+        part computed whole and cut to this rank's rows, so the gradient of the
+        cut reaches every rank's copy of it.
         """
         cell = self.cell
         xc, c = self.input_channels - self.output_channels, self.output_channels
@@ -164,15 +165,26 @@ class ConvGRU(nn.Module):
         )
         kr, ku, kc = (k.to(dtype) for k in raw)
         br, bu, bc = (conv.bias.to(dtype).view(-1, 1, 1) for conv in convs)
-        gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)
+        k_x = torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]])
+        if space is None:
+            conv = lambda x, k: F.conv2d(x, k, padding=1)  # noqa: E731
+        else:
+            conv = space.conv
+        if x_static:
+            gx = _input_part(x_seq, k_x, True)
+            if space is not None:  # whole on every rank: this rank's rows
+                rows = hidden_state.shape[-2]
+                gx = gx[..., space.rank * rows:(space.rank + 1) * rows, :]
+        else:
+            gx = conv(x_seq.flatten(0, 1), k_x).unflatten(0, x_seq.shape[:2])
         k_ru = torch.cat([kr[:, xc:], ku[:, xc:]])
         h, outs = hidden_state.to(dtype), []
         for step in range(t):
             g = gx if x_static else gx[step]
-            gh = F.conv2d(h, k_ru, padding=1)
+            gh = conv(h, k_ru)
             read = torch.sigmoid((g[:, :c] + gh[:, :c]) / sig_r[step] + br)
             update = torch.sigmoid((g[:, c : 2 * c] + gh[:, c:]) / sig_u[step] + bu)
-            cand = F.conv2d(read * h, kc[:, xc:], padding=1)
+            cand = conv(read * h, kc[:, xc:])
             cand = torch.relu((g[:, 2 * c :] + cand) / sig_c[step] + bc)
             h = update * h + (1.0 - update) * cand
             outs.append(h)

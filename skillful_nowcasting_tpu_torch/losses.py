@@ -49,11 +49,18 @@ class GridCellLoss:
     def __init__(self, weight_fn: Optional[Callable] = None, precip_weight_cap: float = 24.0):
         self.weight_fn = (lambda y: weight_fn(y, precip_weight_cap)) if weight_fn else None
 
-    def __call__(self, generated_images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def __call__(self, generated_images: torch.Tensor, targets: torch.Tensor,
+                 field_height: Optional[int] = None) -> torch.Tensor:
+        """The loss of NTCHW videos; ``field_height`` is the field's H where they hold a stripe of it.
+
+        On a stripe the sum is the stripe's share: the stripes' losses add up
+        to the whole field's.
+        """
         difference = generated_images - targets
         if self.weight_fn is not None:
             difference = difference * self.weight_fn(targets)
-        t, h, w = targets.shape[1], targets.shape[3], targets.shape[4]
+        t, w = targets.shape[1], targets.shape[4]
+        h = targets.shape[3] if field_height is None else field_height
         return difference.abs().sum() / t * h * w
 
 

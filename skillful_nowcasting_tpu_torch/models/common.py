@@ -13,12 +13,16 @@ in train mode each slice gets its own BatchNorm statistics and its own
 spectral-norm sigma, as ``S`` sequential torch forwards would. In eval every
 per-timestep block is batch-independent, so ``steps`` changes nothing there.
 
-The generator's blocks and the context stack also take ``space=`` (a
-:class:`~..parallel.spatial.SpaceLayout`, eval only): ``x`` is then this
-rank's stripe of an H-sharded field. Their 3x3 convs exchange halo rows,
-the GBlock kernel runs on a window of rows (:meth:`GBlock.forward`), and
-everything else (1x1 convs, BatchNorm, pooling, pixel shuffles, upsampling)
-runs on the stripe as it is. Without it they run the dense code.
+The blocks and the context stack also take ``space=`` (a
+:class:`~..parallel.spatial.SpaceLayout`, in eval and in train mode): ``x``
+is then this rank's stripe of an H-sharded field. Their 3x3 convs exchange
+halo rows, the eval GBlock kernel runs on a window of rows
+(:meth:`GBlock.forward`), and everything else (1x1 convs, BatchNorm,
+pooling, pixel shuffles, upsampling) runs on the stripe as it is: a train
+BatchNorm takes its statistics over the group its ``sync_batch_norm`` block
+gives it, and a pooling DBlock needs an even count of rows on each rank
+(the discriminators gather a thinner level whole first). Without it they
+run the dense code.
 """
 
 from __future__ import annotations
@@ -277,6 +281,13 @@ class LatentConditioningStack(nn.Module, HubMixin):
             z = z.to(device=x.device, dtype=x.dtype)
         z = self.l_block3(self.l_block2(self.l_block1(self.conv_3x3(z))))
         return self.l_block4(self.att_block(z))
+
+
+DRAWS_NOT_SHARED = (
+    "every rank must pass the same generator (equally seeded) or the same draws (z), as JAX "
+    "passes every device one key: without them each process draws from its own global RNG, "
+    "and the ranks would compute with different latents and frames"
+)
 
 
 def draw_latents(

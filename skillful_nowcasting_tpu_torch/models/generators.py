@@ -32,9 +32,9 @@ class Sampler(nn.Module, HubMixin):
     ``forward(states, latent)`` takes the four NCHW conditioning states
     (largest spatial first) and the latent ``(1 or B, latent_channels, h, w)``
     and returns ``(B, forecast_steps, output_channels, H, W)``. With
-    ``space=`` (eval only) the states and the output are this rank's stripes
-    of an H-sharded field and the latent is whole; the layout goes to each
-    level's ConvGRU, GBlock and UpsampleGBlock, and the head
+    ``space=`` the states and the output are this rank's stripes of an
+    H-sharded field and the latent is whole; the layout goes to each level's
+    ConvGRU, GBlock and UpsampleGBlock, and the head
     (BN-ReLU-1x1-``depth_to_space``) runs on the stripe.
     """
 

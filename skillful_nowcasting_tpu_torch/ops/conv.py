@@ -24,9 +24,11 @@ on f32 and bf16 inputs. In a train forward the power iterations and sigmas
 stay in the parameter's dtype; the sigmas are cast at the division.
 
 With ``space=`` (a :class:`~..parallel.spatial.SpaceLayout`) the input is
-this rank's stripe of an H-sharded field, in eval only: a SAME stride-1 2-D
-conv exchanges its halo rows (``space.conv``), a 1x1 conv runs on the stripe
-as it is.
+this rank's stripe of an H-sharded field, in eval and in train mode: a SAME
+stride-1 2-D conv exchanges its halo rows (``space.conv``), a 3-D one on
+NCDHW its rows in H, a 1x1 conv runs on the stripe as it is. The power
+iterations read the weight only, so every rank runs them alike and they
+advance once per forward, as without a layout.
 """
 
 from __future__ import annotations
@@ -40,50 +42,36 @@ from torch.nn.utils import parametrize
 
 from .spectral_norm import spectral_norm as _spectral_norm
 
-SPATIAL_TRAIN_NOT_PORTED = (
-    "a spatially sharded forward runs in eval mode only: the sharded train and eval steps "
-    "(spatial_axis in make_dp_train_step / make_dp_eval_step) are not ported; see ROADMAP.md, "
-    "Queue 1 item 6"
-)
-
 
 class _TrainSpectral:
     """``forward(x, steps=None, space=None)`` shared by the three layers below."""
 
-    def _linear(self, x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    def _linear(self, x: torch.Tensor, weight: torch.Tensor, bias=None, space=None):
         """The layer on an explicit weight and bias (convs; :class:`Linear` overrides)."""
-        return self._conv_forward(x, weight, bias)
+        if space is None:
+            return self._conv_forward(x, weight, bias)
+        k, pad = self.kernel_size[0], (self.kernel_size[0] - 1) // 2
+        if (self.kernel_size == (k,) * len(self.kernel_size) and k % 2
+                and self.padding == (pad,) * len(self.kernel_size)
+                and set(self.stride) == set(self.dilation) == {1} and self.groups == 1):
+            return space.conv(x, weight, bias, padding=pad)  # 1x1: no rows exchanged
+        raise ValueError(f"{type(self).__name__} {tuple(weight.shape)} with padding "
+                         f"{self.padding} has no H-sharded version: a sharded forward takes "
+                         "stride-1 SAME convs")
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
-        if space is not None:
-            return self._sharded(x, space)
         if not (self.training and parametrize.is_parametrized(self, "weight")):
             bias = None if self.bias is None else self.bias.to(x.dtype)
-            return self._linear(x, self.weight.to(x.dtype), bias)
+            return self._linear(x, self.weight.to(x.dtype), bias, space)
         raw = self.parametrizations.weight.original
         sigmas = self.parametrizations.weight[0].advance(raw, steps or 1)
-        y = self._linear(x, raw.to(x.dtype))
+        y = self._linear(x, raw.to(x.dtype), space=space)
         y = y.unflatten(0, (sigmas.shape[0], -1))
         y = y / sigmas.to(y.dtype).view((-1,) + (1,) * (y.ndim - 1))
         y = y.flatten(0, 1)
         if self.bias is None:
             return y
         return y + self.bias.to(y.dtype).view((-1,) + (1,) * (y.ndim - 2))
-
-    def _sharded(self, x: torch.Tensor, space) -> torch.Tensor:
-        """The eval layer on this rank's rows of an H-sharded NCHW field."""
-        if self.training:
-            raise NotImplementedError(SPATIAL_TRAIN_NOT_PORTED)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        weight = self.weight.to(x.dtype)
-        if isinstance(self, nn.Conv2d):
-            k, pad = self.kernel_size[0], (self.kernel_size[0] - 1) // 2
-            if (self.kernel_size == (k, k) and k % 2 and self.padding == (pad, pad)
-                    and self.stride == (1, 1) and self.dilation == (1, 1) and self.groups == 1):
-                return space.conv(x, weight, bias, padding=pad)  # 1x1: no rows exchanged
-        raise ValueError(f"{type(self).__name__} {tuple(weight.shape)} with padding "
-                         f"{getattr(self, 'padding', None)} has no H-sharded version: a sharded "
-                         "forward takes stride-1 SAME 2-D convs")
 
 
 class Conv2d(_TrainSpectral, nn.Conv2d):
@@ -97,7 +85,9 @@ class Conv3d(_TrainSpectral, nn.Conv3d):
 class Linear(_TrainSpectral, nn.Linear):
     """``nn.Linear`` (weight ``(out, in)``) whose train forward applies per-slice spectral norm."""
 
-    def _linear(self, x, weight, bias=None):
+    def _linear(self, x, weight, bias=None, space=None):
+        if space is not None:
+            raise ValueError("a Linear layer has no H-sharded version")
         return F.linear(x, weight, bias)
 
 

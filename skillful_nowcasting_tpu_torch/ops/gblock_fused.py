@@ -39,7 +39,8 @@ def fold_gblock_variables(block, dtype=None):
     with spectral norm applied, BN folded to ``a * x + b``, conv1's bias folded
     into ``b2`` and conv2's (plus the shortcut conv's, when used) into ``b_out``.
     Everything is computed in the parameters' dtype; the kernels are then cast
-    to ``dtype`` (the activation's, e.g. bfloat16), the affines are not.
+    to ``dtype`` (the activation's, e.g. bfloat16), the affines to float32
+    where ``dtype`` is float32 or bfloat16 (a float64 model serving float32).
     """
 
     def hwio(conv):  # SN applied by .weight
@@ -58,6 +59,9 @@ def fold_gblock_variables(block, dtype=None):
     b2 = a2 * c1b + b2  # relu(a2 * (conv1 + c1b) + b2)
     use_sc_conv = k1.shape[2] != k2.shape[3]  # Cin != Cout
     b_out = c2b + scb if use_sc_conv else c2b
+    if dtype is not None:
+        affine = torch.promote_types(dtype, torch.float32)
+        a1, b1, a2, b2, b_out = (t.to(affine) for t in (a1, b1, a2, b2, b_out))
     return k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv
 
 

@@ -24,10 +24,14 @@ Inside :func:`sync_batch_norm` a layer's train forward is synchronised over a
 process group, as a single-device step on the global batch would compute it
 (the data-parallel ``pjit`` mode): each slice's sums of ``x`` and ``x^2``
 and the element count are summed over the ranks by an autograd-aware
-all-reduce (:class:`_SumOverRanks`) before the mean and variance, so the
+all-reduce (:func:`sum_over_ranks`) before the mean and variance, so the
 backward pass all-reduces their gradients in turn. The unbiased
 factor uses the global count. Every rank must run the same forwards in the
 same order (and so the same backward and recompute), as the train step does.
+The H-sharded step gives each layer its own group: the generator's
+BatchNorms see stripes of every rank's rows (the whole mesh), the
+discriminator heads' values that every rank of a space group holds alike
+(the data group), so :func:`sync_batch_norm` blocks nest.
 """
 
 from __future__ import annotations
@@ -43,17 +47,19 @@ from torch import nn
 def sync_batch_norm(model: nn.Module, group):
     """Synchronise the train-mode forwards of ``model``'s BatchNorms over ``group`` in the block.
 
-    ``group=None`` changes nothing. Each layer keeps the group in its
-    ``sync_group`` attribute while the block runs.
+    ``group=None`` synchronises nothing. Each layer keeps the group in its
+    ``sync_group`` attribute while the block runs and gets its former group
+    back after, so an inner block can give a submodule another group.
     """
     layers = [m for m in model.modules() if isinstance(m, _TorchBatchNorm)]
+    before = [m.sync_group for m in layers]
     for m in layers:
         m.sync_group = group
     try:
         yield
     finally:
-        for m in layers:
-            m.sync_group = None
+        for m, g in zip(layers, before):
+            m.sync_group = g
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -78,6 +84,11 @@ class _SumOverRanks(torch.autograd.Function):
         return _SumOverRanks.apply(grad, ctx.group), None
 
 
+def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``'s ranks, differentiable to any order (the backward all-reduces)."""
+    return _SumOverRanks.apply(x, group)
+
+
 def _moments(xs: torch.Tensor, red, s: int, group):
     """Per-slice mean and biased variance ``(S, C)``, and the unbiased factor ``n / (n - 1)``."""
     n = xs[:, :, 0].numel() // s  # elements of one slice and channel
@@ -86,7 +97,7 @@ def _moments(xs: torch.Tensor, red, s: int, group):
         return mean, (xs * xs).mean(dim=red) - mean * mean, n / max(n - 1, 1)
     sums = torch.cat([xs.sum(dim=red).reshape(-1), (xs * xs).sum(dim=red).reshape(-1),
                       xs.new_full((1,), float(n))])
-    sums = _SumOverRanks.apply(sums, group)
+    sums = sum_over_ranks(sums, group)
     n = sums[-1].detach()  # the global count, kept on the device
     mean, sq = sums[:-1].view(2, s, -1) / n
     return mean, sq - mean * mean, n / (n - 1).clamp_min(1)

@@ -6,8 +6,8 @@ insert the collectives. Here every rank is a process (``torchrun``), the
 collectives are explicit ``torch.distributed`` calls: the gradient and state
 averages of the data-parallel step (:mod:`.dp`), the all-reduce that
 stitches a mesh-sharded tiled nowcast (``inference.tiled_nowcast_device``),
-and the halo rows of the spatially sharded convs and generator forward
-(:mod:`.spatial`).
+and the halo rows of the spatially sharded convs, generator forward and
+train and eval steps (:mod:`.spatial`).
 """
 
 from .dp import make_dp_eval_step, make_dp_generate, make_dp_train_step
@@ -20,6 +20,7 @@ from .mesh import (
     make_mesh,
     replicate,
     shard_batch,
+    space_stripe,
 )
 from .spatial import (
     SpaceLayout,
@@ -28,6 +29,8 @@ from .spatial import (
     halo_window,
     make_spatial_conv,
     make_spatial_forward,
+    reset_halo_counters,
+    space_layout,
 )
 
 __all__ = [
@@ -47,5 +50,8 @@ __all__ = [
     "make_spatial_conv",
     "make_spatial_forward",
     "replicate",
+    "reset_halo_counters",
     "shard_batch",
+    "space_layout",
+    "space_stripe",
 ]

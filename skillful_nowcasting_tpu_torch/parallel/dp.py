@@ -15,14 +15,19 @@ batch. Every rank uses the same draws, train-mode BatchNorm is synchronised
 over the ranks, and with equal local batches the averaged gradient is the
 global batch's.
 
-Not ported: ``spatial_axis`` in the steps (JAX shards the batches' H axis
-too and lets GSPMD partition the whole step); it raises
-``NotImplementedError``. The H-sharded generator forward is ported:
-:func:`~.spatial.make_spatial_forward`.
+``spatial_axis="space"`` (``pjit`` only, as in JAX) shards the batches' H
+axis over the mesh's ``space`` axis too: each rank runs the global-batch
+step on its stripe of its rows (:func:`~.mesh.shard_batch` with
+``spatial_axis="space"`` cuts both), every conv exchanges its halos forward
+and backward, the generator's BatchNorms synchronise over the whole mesh and
+the gradients average over it (:mod:`.spatial`). JAX lets GSPMD partition
+the same step.
 """
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Optional
 
 import torch
@@ -30,12 +35,7 @@ import torch
 from ..inference import make_generate
 from ..training import make_eval_step, make_train_step
 from .mesh import Mesh, shard_batch
-
-SPATIAL_NOT_PORTED = (
-    "spatial_axis in the train and eval steps (the batches' H axis sharded over the mesh, "
-    "the whole step partitioned with its conv halos) is not ported to PyTorch; the H-sharded "
-    "generator forward is (parallel.make_spatial_forward). See ROADMAP.md, Queue 1 item 6"
-)
+from .spatial import check_field_rows, space_layout
 
 
 def _validate_layout(mesh: Mesh, mode: str, spatial_axis: Optional[str]) -> None:
@@ -48,14 +48,32 @@ def _validate_layout(mesh: Mesh, mode: str, spatial_axis: Optional[str]) -> None
             "shard_map DP mode maps batch shards to per-device programs "
             "with no cross-shard conv halos"
         )
-    if spatial_axis is not None:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if spatial_axis not in (None, "space"):
+        raise ValueError(f"the mesh's spatial axis is 'space', got {spatial_axis!r}")
+    if spatial_axis is not None and mesh.size == 1:
+        warnings.warn(
+            f"spatial_axis={spatial_axis!r} has no effect on a 1-device "
+            "mesh: the plain step runs unsharded",
+            stacklevel=3,
+        )
 
 
-def _on_mesh(model, mesh: Mesh) -> None:
-    mesh.check_device(next(model.parameters()).device)
-    if mesh.shape["space"] > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+def _layout(mesh: Mesh, spatial_axis: Optional[str]):
+    """``(group, space, wrap)`` of a step on ``mesh``: the group it spans, its layout, and
+    ``wrap``, which refuses a stripe that cannot shard."""
+    if mesh.shape["space"] == 1 or spatial_axis is None:  # the space ranks compute alike
+        return mesh.data_group, None, lambda step: step
+    n_space = mesh.shape["space"]
+
+    def wrap(step):
+        @functools.wraps(step)
+        def sharded(state, images, future_images, *args, **kwargs):
+            check_field_rows(torch.as_tensor(images).shape[-2] * n_space, n_space)
+            return step(state, images, future_images, *args, **kwargs)
+
+        return sharded
+
+    return mesh.group, space_layout(mesh), wrap
 
 
 def make_dp_train_step(
@@ -76,10 +94,13 @@ def make_dp_train_step(
 ):
     """The GAN train step over ``mesh``: ``step(state, images, future_images, generator=None, draws=None)``.
 
-    ``images`` / ``future_images`` are this rank's rows of the global batch;
-    ``generator`` is the same on every rank (the shard_map mode derives each
-    rank's draws from it, :func:`~..training.rank_generator`). A mesh of one
-    returns the plain step. The keyword arguments are the JAX package's:
+    ``images`` / ``future_images`` are this rank's rows of the global batch
+    (with ``spatial_axis="space"``, its stripe of them, whose field's H must
+    divide by ``32 * n_space``: ``ValueError`` otherwise); ``generator`` is
+    the same on every rank (the shard_map mode derives each rank's draws
+    from it, :func:`~..training.rank_generator`; the pjit mode needs it or
+    ``draws``). A mesh of one returns the plain step, with a warning where
+    ``spatial_axis`` is set. The keyword arguments are the JAX package's:
     ``donate_state`` has nothing to do here (the step updates the state in
     place), and the optimizers belong to the state
     (:func:`~..training.init_train_state`), so ``optimizers`` raises.
@@ -89,13 +110,15 @@ def make_dp_train_step(
     if optimizers is not None:
         raise TypeError("the port's optimizers live in the TrainState: pass them to "
                         "training.init_train_state")
-    _on_mesh(model, mesh)
+    mesh.check_device(next(model.parameters()).device)
     kw = dict(logging_forward=logging_forward, watch_gradients=watch_gradients,
               watch_histograms=watch_histograms, compute_dtype=compute_dtype,
               return_grads=return_grads, rollout_remat=rollout_remat, r1_gamma=r1_gamma)
     if mesh.size == 1:
         return make_train_step(model, **kw)
-    return make_train_step(model, group=mesh.data_group, global_batch=mode == "pjit", **kw)
+    group, space, wrap = _layout(mesh, spatial_axis)
+    return wrap(make_train_step(model, group=group, global_batch=mode == "pjit", space=space,
+                                batch_group=mesh.data_group, **kw))
 
 
 def make_dp_eval_step(
@@ -106,13 +129,18 @@ def make_dp_eval_step(
     compute_dtype: Optional[torch.dtype] = None,
     spatial_axis: Optional[str] = None,
 ):
-    """The validation step over ``mesh``: per-rank draws (``pjit``: shared), metrics averaged."""
+    """The validation step over ``mesh``: per-rank draws (``pjit``: shared), metrics averaged.
+
+    The batches as in :func:`make_dp_train_step`; with ``spatial_axis`` the
+    generator's kernels run on windows of each stripe.
+    """
     _validate_layout(mesh, mode, spatial_axis)
-    _on_mesh(model, mesh)
+    mesh.check_device(next(model.parameters()).device)
     if mesh.size == 1:
         return make_eval_step(model, compute_dtype=compute_dtype)
-    return make_eval_step(model, compute_dtype=compute_dtype, group=mesh.data_group,
-                          global_batch=mode == "pjit")
+    group, space, wrap = _layout(mesh, spatial_axis)
+    return wrap(make_eval_step(model, compute_dtype=compute_dtype, group=group,
+                               global_batch=mode == "pjit", space=space))
 
 
 def make_dp_generate(model, mesh: Mesh, *, num_samples: Optional[int] = None):
@@ -122,9 +150,11 @@ def make_dp_generate(model, mesh: Mesh, *, num_samples: Optional[int] = None):
     each rank nowcasts its contiguous rows of the batch with the same
     per-sample latents (:func:`~..inference.make_generate`), so the ranks'
     outputs in rank order are the single-rank ensemble. Inference has no
-    cross-rank math, so nothing is communicated.
+    cross-rank math, so nothing is communicated. The ranks of a ``space``
+    axis compute the same rows (the H-sharded forward is
+    :func:`~.spatial.make_spatial_forward`).
     """
-    _on_mesh(model, mesh)
+    mesh.check_device(next(model.parameters()).device)
     generate = make_generate(model, num_samples=num_samples)
 
     def dp_generate(x, generator: Optional[torch.Generator] = None) -> torch.Tensor:

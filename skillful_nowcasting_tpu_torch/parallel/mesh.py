@@ -257,6 +257,18 @@ def shard_batch(batch, mesh: Mesh, spatial_axis: Optional[str] = None):
     return t.to(mesh.device)
 
 
+def space_stripe(batch, mesh: Mesh):
+    """This rank's stripe of H (the second-to-last axis) of tensors that hold its data rank's rows.
+
+    What :func:`shard_batch` with ``spatial_axis="space"`` cuts from a global
+    batch, for a rank that reads only its data rank's rows (the Trainer's
+    streams); a tuple or list is cut element by element.
+    """
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(space_stripe(b, mesh) for b in batch)
+    return _cut_rows(torch.as_tensor(batch), -2, mesh.shape["space"], mesh.space_rank, "space")
+
+
 def gather_space(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The space group's stripes of ``y`` stacked back along H (the second-to-last axis), on every rank."""
     if mesh.space_group is None:

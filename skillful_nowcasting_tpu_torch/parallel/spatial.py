@@ -16,11 +16,18 @@ stripe are cropped.
 CUDA tensor are copied to the host, sent, and copied back; NCCL sends them
 card to card. Both exchanges count their calls, the bytes they receive and
 their host seconds (``halo_window.calls`` / ``.bytes`` / ``.seconds``, the
-same on :func:`halo_exchange`), as the kernels count launches.
+same on :func:`halo_exchange`, whose backward exchanges count apart), as the
+kernels count launches.
 
 :func:`make_spatial_forward` is the generator forward with every activation
 H-sharded: JAX leaves the halos to GSPMD, here each layer takes them
-explicitly (:class:`SpaceLayout`).
+explicitly (:class:`SpaceLayout`). The H-sharded train and eval steps
+(:mod:`.dp`, ``spatial_axis="space"``) run the whole D/D/G cycle on stripes.
+Their collectives follow one convention, under which autograd needs no
+special case: every collective is a sum (a halo is a sum of a neighbour's
+rows into zeros) whose backward is its adjoint, so each rank's backward
+yields its share of the gradient of the sum of every rank's loss, and the
+mean of the ranks' gradients over the mesh is the dense step's.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..ops.conv import SPATIAL_TRAIN_NOT_PORTED
+from ..models.common import DRAWS_NOT_SHARED
+from ..ops.norm import sum_over_ranks, sync_batch_norm
 from .mesh import Mesh, shard_batch
 
 # The generator's deepest activation (the last context state, the latent) has H / 32 rows,
@@ -58,36 +66,94 @@ def _exchange(ops) -> None:
             work.wait()
 
 
-def halo_exchange(x: torch.Tensor, halo: int, group) -> torch.Tensor:
-    """``(B, C, H_local + 2 halo, W)``: ``x`` with ``halo`` rows of each H-neighbour around it.
+def _swap(up: torch.Tensor, down: torch.Tensor, group, device) -> tuple:
+    """Send ``up`` to the rank above and ``down`` to the rank below; ``(from_above, from_below)``.
 
-    Rank ``i`` of ``group`` holds rows after rank ``i - 1``'s. The first
-    rank's top and the last rank's bottom halo are zeros, as SAME zero
-    padding gives.
+    ``from_above`` is what the rank above sent down, ``from_below`` what the
+    rank below sent up; zeros where there is no such rank (the field's edges).
     """
-    t0 = time.perf_counter()
     n, me = dist.get_world_size(group), dist.get_rank(group)
-    staged = _staged(x, group)
+    staged = _staged(up, group)
 
     def wire(t):  # what goes over the group: a contiguous tensor where the backend takes it
         return t.to("cpu").contiguous() if staged else t.contiguous()
 
-    top, bottom = torch.zeros_like(wire(x[:, :, :halo])), torch.zeros_like(wire(x[:, :, -halo:]))
+    up, down = wire(up), wire(down)
+    from_above, from_below = torch.zeros_like(down), torch.zeros_like(up)
     ops, received = [], []
-    if me > 0:  # my top rows are the previous rank's bottom halo; its bottom rows my top halo
+    if me > 0:
         prev = dist.get_global_rank(group, me - 1)
-        ops += [dist.P2POp(dist.isend, wire(x[:, :, :halo]), prev, group),
-                dist.P2POp(dist.irecv, top, prev, group)]
-        received.append(top)
+        ops += [dist.P2POp(dist.isend, up, prev, group),
+                dist.P2POp(dist.irecv, from_above, prev, group)]
+        received.append(from_above)
     if me < n - 1:
         nxt = dist.get_global_rank(group, me + 1)
-        ops += [dist.P2POp(dist.isend, wire(x[:, :, -halo:]), nxt, group),
-                dist.P2POp(dist.irecv, bottom, nxt, group)]
-        received.append(bottom)
+        ops += [dist.P2POp(dist.isend, down, nxt, group),
+                dist.P2POp(dist.irecv, from_below, nxt, group)]
+        received.append(from_below)
     _exchange(ops)
-    out = torch.cat([top.to(x.device), x, bottom.to(x.device)], dim=2)
-    _count(halo_exchange, received, t0)
-    return out
+    return from_above.to(device), from_below.to(device), received
+
+
+class _HaloExchange(torch.autograd.Function):
+    """The halo rows around each stripe; its backward is :class:`_HaloAdjoint`, and back again."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, halo: int, group) -> torch.Tensor:
+        ctx.halo, ctx.group = halo, group
+        t0 = time.perf_counter()
+        top, bottom, received = _swap(x[..., :halo, :], x[..., -halo:, :], group, x.device)
+        out = torch.cat([top, x, bottom], dim=-2)
+        _count(halo_exchange, received, t0)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _HaloAdjoint.apply(grad, ctx.halo, ctx.group), None, None
+
+
+class _HaloAdjoint(torch.autograd.Function):
+    """The adjoint of :class:`_HaloExchange`: each halo row's gradient goes back to its owner.
+
+    A rank sends the gradients of its top halo to the rank above, whose
+    bottom rows they are, and of its bottom halo to the rank below; each adds
+    what it receives into its edge rows. The halo at the field's edges (the
+    zero padding) has no owner and drops out.
+    """
+
+    @staticmethod
+    def forward(ctx, grad: torch.Tensor, halo: int, group) -> torch.Tensor:
+        ctx.halo, ctx.group = halo, group
+        t0 = time.perf_counter()
+        top, bottom, received = _swap(grad[..., :halo, :], grad[..., -halo:, :], group,
+                                      grad.device)
+        inner = grad[..., halo:grad.shape[-2] - halo, :]
+        rest = inner.shape[-2] - halo
+        out = inner + F.pad(top, (0, 0, 0, rest)) + F.pad(bottom, (0, 0, rest, 0))
+        halo_exchange.backward_calls += 1
+        halo_exchange.backward_bytes += sum(t.numel() * t.element_size() for t in received)
+        halo_exchange.backward_seconds += time.perf_counter() - t0
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _HaloExchange.apply(grad, ctx.halo, ctx.group), None, None
+
+
+def halo_exchange(x: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """``(..., H_local + 2 halo, W)``: ``x`` with ``halo`` rows of each H-neighbour around it.
+
+    H is the second-to-last axis (NCHW and NCDHW alike). Rank ``i`` of
+    ``group`` holds rows after rank ``i - 1``'s. The first rank's top and the
+    last rank's bottom halo are zeros, as SAME zero padding gives. Autograd
+    runs through it to any order: the backward sends each halo row's gradient
+    back to the rank that owns the row (counted apart, as ``.backward_calls``
+    / ``.backward_bytes`` / ``.backward_seconds``), and the backward of that
+    is the exchange again.
+    """
+    if not 0 < halo <= x.shape[-2]:
+        raise ValueError(f"a halo of {halo} rows around a stripe of {x.shape[-2]}")
+    return _HaloExchange.apply(x, halo, group)
 
 
 def _window(rank: int, rows_each: int, n: int, rows: int) -> tuple:
@@ -133,8 +199,15 @@ def halo_window(x: torch.Tensor, rows: int, group) -> tuple:
     return xw, me * each - lo, hi - (me + 1) * each
 
 
-for _fn in (halo_exchange, halo_window):  # communication since the last reset
-    _fn.calls, _fn.bytes, _fn.seconds = 0, 0, 0.0
+def reset_halo_counters() -> None:
+    """Set every exchange counter, forward and backward, to 0 (they count since the last reset)."""
+    for fn in (halo_exchange, halo_window):
+        fn.calls, fn.bytes, fn.seconds = 0, 0, 0.0
+    halo_exchange.backward_calls, halo_exchange.backward_bytes = 0, 0
+    halo_exchange.backward_seconds = 0.0
+
+
+reset_halo_counters()
 
 
 def halo_conv2d(x: torch.Tensor, weight: torch.Tensor, group, padding: int = 1,
@@ -167,19 +240,57 @@ def make_spatial_conv(mesh: Mesh, *, padding: int = 1):
 class SpaceLayout:
     """This rank's place on the ``space`` axis, handed to the layers of a sharded forward.
 
-    The layers call :meth:`conv` for a SAME conv and :meth:`window` for a fused
-    kernel's rows; ``rank`` places a rank's stripe in a tensor every rank
-    holds whole (the latent).
+    The layers call :meth:`conv` for a SAME conv (2-D, or 3-D on NCDHW with
+    the halo in H only) and :meth:`window` for a fused kernel's rows; the
+    discriminators call :meth:`sum` to add up a reduction over the stripes
+    and :meth:`gather` for a level too thin to pool on its stripes. ``rank``
+    places a rank's stripe in a tensor every rank holds whole (the latent).
+    Every collective but :meth:`window` is differentiable to any order.
     """
 
     group: dist.ProcessGroup
     rank: int
 
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
     def window(self, x: torch.Tensor, rows: int) -> tuple:
         return halo_window(x, rows, self.group)
 
     def conv(self, x: torch.Tensor, weight: torch.Tensor, bias=None, padding: int = 1):
+        if x.ndim == 5:  # NCDHW: the halo in H, SAME zero padding in D and W
+            xh = halo_exchange(x, padding, self.group) if padding else x
+            return F.conv3d(xh, weight, bias, padding=(padding, 0, padding))
         return halo_conv2d(x, weight, self.group, padding=padding, bias=bias)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the space group (its backward all-reduces the gradients)."""
+        return sum_over_ranks(x, self.group)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole field of H-stripes ``x`` (H the second-to-last axis), on every rank.
+
+        Each rank places its stripe in zeros at its rows and the space group
+        sums them, so the backward is the reduce-scatter: the gradients of
+        every rank's copy summed, and this rank's rows kept.
+        """
+        rows, n = x.shape[-2], self.size
+        return self.sum(F.pad(x, (0, 0, self.rank * rows, (n - 1 - self.rank) * rows)))
+
+
+def check_field_rows(h: int, n_space: int) -> None:
+    """Raise ``ValueError`` unless a field of ``h`` rows shards over ``n_space`` space ranks."""
+    if h % (SPATIAL_MULTIPLE * n_space):
+        raise ValueError(
+            f"an H of {h} does not shard over {n_space} space ranks: it must divide by "
+            f"{SPATIAL_MULTIPLE} x {n_space} (the deepest state has H / {SPATIAL_MULTIPLE} rows, "
+            "an even count a rank above it)")
+
+
+def space_layout(mesh: Mesh) -> Optional[SpaceLayout]:
+    """This rank's :class:`SpaceLayout` on ``mesh``, or ``None`` where its space axis is 1."""
+    return SpaceLayout(mesh.space_group, mesh.space_rank) if mesh.shape["space"] > 1 else None
 
 
 def make_spatial_forward(model, mesh: Mesh, *, spatial_axis: Optional[str] = "space",
@@ -190,9 +301,11 @@ def make_spatial_forward(model, mesh: Mesh, *, spatial_axis: Optional[str] = "sp
     global NTCHW batch, on every rank; each rank cuts its rows of the batch
     and of H (:func:`~.mesh.shard_batch`) and returns its stripe
     ``(B / n_data, T, C, H / n_space, W)`` of the nowcast
-    (:func:`~.mesh.gather_space` stacks the stripes back). Every rank passes
-    the same ``z`` or an equally seeded ``generator``, JAX's shared key: the
-    latent stack runs whole on every rank, as it reads no input rows.
+    (:func:`~.mesh.gather_space` stacks the stripes back). The latent stack
+    runs whole on every rank, as it reads no input rows, so every rank must
+    pass the same ``z`` or an equally seeded ``generator``, JAX's shared key:
+    with ``space > 1`` a call with neither raises ``ValueError`` (each
+    process's global RNG would give its stripe another latent).
 
     Every SAME 3x3 conv exchanges one halo row a side (:func:`halo_conv2d`);
     each GBlock kernel takes a window of 2 rows a side and each ConvGRU
@@ -203,8 +316,10 @@ def make_spatial_forward(model, mesh: Mesh, *, spatial_axis: Optional[str] = "sp
     state has H / 32 rows, an even count on every rank above it. JAX's GSPMD
     pads an uneven split instead; the port refuses it.
 
-    The model must be in eval mode (the sharded train step is not ported)
-    and on the mesh's device. A mesh whose ``space`` axis is 1 gives the
+    The model must be on the mesh's device. In eval mode the kernels run on
+    windows; in train mode the plain layers run with their halos, and the
+    generator's BatchNorms take their statistics over every rank of the mesh,
+    the global batch's. A mesh whose ``space`` axis is 1 gives the
     dense forward of this rank's batch rows. ``spatial_axis=None`` on a mesh
     with ``space > 1`` raises: every rank of the space axis would compute
     the same rows. The keywords are JAX's; the port's mesh has only the
@@ -218,24 +333,17 @@ def make_spatial_forward(model, mesh: Mesh, *, spatial_axis: Optional[str] = "sp
         raise ValueError(f"spatial_axis=None on a mesh with {n_space} space ranks: each would "
                          "compute the whole field; build the mesh with n_space=1")
     mesh.check_device(next(model.parameters()).device)
-    _refuse_train(model)
-    space = SpaceLayout(mesh.space_group, mesh.space_rank) if n_space > 1 else None
+    space = space_layout(mesh)
 
     def fwd(x, z: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        _refuse_train(model)
+        if space is not None and z is None and generator is None:
+            raise ValueError(DRAWS_NOT_SHARED)
         x = torch.as_tensor(x)
-        if x.shape[-2] % (SPATIAL_MULTIPLE * n_space):
-            raise ValueError(
-                f"an H of {x.shape[-2]} does not shard over {n_space} space ranks: it must divide "
-                f"by {SPATIAL_MULTIPLE} x {n_space} (the deepest state has H / "
-                f"{SPATIAL_MULTIPLE} rows, an even count a rank above it)")
+        check_field_rows(x.shape[-2], n_space)
         x = shard_batch(x, mesh, spatial_axis="space" if space else None)
-        return model(x, z=z, generator=generator, space=space)
+        with sync_batch_norm(model, mesh.group if model.training else None):
+            return model(x, z=z, generator=generator, space=space)
 
     return fwd
 
-
-def _refuse_train(model) -> None:
-    if model.training:
-        raise NotImplementedError(SPATIAL_TRAIN_NOT_PORTED)

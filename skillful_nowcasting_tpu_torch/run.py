@@ -25,6 +25,9 @@ rows, and must get a whole number), each rank streams its own shard of the
 data, ``--dp-mode`` picks the step's semantics (:mod:`.parallel.dp`) and
 only rank 0 writes checkpoints and logs. NCCL needs a card per rank;
 ``--dist-backend gloo --device cuda:0`` runs several ranks on one card.
+``--mesh-space N`` (with ``--dp-mode pjit``) shards each field's H over N
+ranks as well: the ranks of a space group read their data rank's batch and
+each trains on its stripe (``--output-shape`` must divide by ``32 N``).
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ def parse_args(argv=None):
                         "draws and BatchNorm statistics); pjit = the global batch's step "
                         "(synchronised BatchNorm, shared draws)")
     p.add_argument("--mesh-space", type=int, default=1,
-                   help="ranks along the mesh's space axis (spatial_axis; not ported: > 1 raises)")
+                   help="ranks along the mesh's space axis: > 1 shards each field's H over them "
+                        "(spatial_axis; needs --dp-mode pjit)")
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="torch.distributed backend under torchrun (default: nccl on CUDA)")
     args = p.parse_args(argv)
@@ -112,8 +116,9 @@ def data_iterators(args, device, rank: int = 0, ranks: int = 1):
     """(train, validation) iterators of this rank's NTCHW batches for the chosen source.
 
     Each of ``ranks`` ranks takes ``args.batch_size / ranks`` rows a batch.
-    Synthetic data and MRMS crops are seeded per rank; Nimrod streams are
-    sharded by ``torch.distributed``'s rank (:mod:`.data`).
+    Synthetic data and MRMS crops are seeded per rank and Nimrod streams
+    sharded by it (:mod:`.data`). ``rank`` and ``ranks`` are the data axis',
+    so the ranks of a space group read the same batches.
     """
     import numpy as np
 
@@ -140,6 +145,7 @@ def data_iterators(args, device, rank: int = 0, ranks: int = 1):
         array = np.load(args.mrms_npy, mmap_mode="r")
         kw = dict(batch_size=batch, crop=args.output_shape,
                   num_target_frames=args.forecast_steps)
+        kw.update(process_index=rank, process_count=ranks)
         return (iter(MRMSSequences(array, seed=args.seed, **kw)),
                 iter(MRMSSequences(array, seed=args.seed + 10_000, **kw)))
     if args.nimrod_parquet:
@@ -148,7 +154,7 @@ def data_iterators(args, device, rank: int = 0, ranks: int = 1):
     else:
         stream = dict(dataset_name=args.dataset_name)
     dm = DGMRDataModule(batch_size=batch, num_target_frames=args.forecast_steps,
-                        seed=args.seed, **stream)
+                        seed=args.seed, process_index=rank, process_count=ranks, **stream)
     return dm.train_dataloader(), dm.val_dataloader()
 
 

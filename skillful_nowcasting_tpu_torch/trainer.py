@@ -13,8 +13,12 @@ more than one rank every rank runs ``fit`` with its own stream of batches
 (its rows of the global batch), the step averages the gradients, and the
 ranks start from rank 0's weights. Only rank 0 writes checkpoints and logs;
 every rank restores. A SIGTERM on any rank stops every rank after the same
-step: the flag is all-reduced at each step's end. ``spatial_axis`` is not
-ported.
+step: the flag is all-reduced at each step's end. ``spatial_axis="space"``
+(with ``dp_mode="pjit"``, as in JAX) shards the fields' H over the mesh's
+``space`` axis as well: the ranks of a space group read the same stream
+(their data rank's rows) and each cuts its stripe of every train and
+validation batch (:func:`~.parallel.space_stripe`); the steps and the skill
+metrics run on the stripes and give the whole fields' numbers.
 
 Randomness: the train steps draw their latents and frame indices from one
 CPU ``torch.Generator`` seeded with ``seed`` (on a mesh, the shard_map step
@@ -37,7 +41,15 @@ import torch
 
 from .checkpoint import DEFAULT_MONITOR, make_manager, restore_state, save_state
 from .logging_utils import MetricsLogger
-from .parallel import gather_rows, make_dp_eval_step, make_dp_train_step, make_mesh, replicate
+from .parallel import (
+    gather_rows,
+    make_dp_eval_step,
+    make_dp_train_step,
+    make_mesh,
+    replicate,
+    space_layout,
+    space_stripe,
+)
 from .training import TrainState, _average, _mode, init_train_state
 
 
@@ -135,12 +147,15 @@ class Trainer:
         )
         self.eval_step = make_dp_eval_step(model, self.mesh, mode=dp_mode,
                                            compute_dtype=compute_dtype, spatial_axis=spatial_axis)
+        # This rank's stripe of each batch under a space layout, else the batch.
+        self.space = space_layout(self.mesh) if spatial_axis is not None else None
         self.skill_metrics = None
         if val_skill:
             from .inference import make_skill_metrics
 
             with _mode(model, False):
-                self.skill_metrics = make_skill_metrics(model, dtype=compute_dtype)
+                self.skill_metrics = make_skill_metrics(model, dtype=compute_dtype,
+                                                        space=self.space)
         self.logger = MetricsLogger(log_dir, use_wandb=use_wandb) if self.rank == 0 else _Quiet()
         self.manager = make_manager(f"{ckpt_dir}/latest") if ckpt_dir else None
         self.best_manager = (
@@ -152,8 +167,9 @@ class Trainer:
         self._saved_step = None  # the step of the newest checkpoint, the same on every rank
 
     def _to_device(self, batch):
-        return tuple(torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor) else b)
-                     .to(self.device) for b in batch)
+        batch = tuple(torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor) else b)
+                      .to(self.device) for b in batch)
+        return batch if self.space is None else space_stripe(batch, self.mesh)
 
     def _sigterm(self, _sig, _frame):
         """SIGTERM (preemption) becomes KeyboardInterrupt, between steps.

@@ -37,7 +37,10 @@ draws its own latents and frames and keeps its own BatchNorm statistics,
 and every floating BN/SN buffer is averaged at the step's end (torch-DDP
 semantics, JAX's ``shard_map`` mode). ``global_batch=True`` is the
 single-card step on the global batch (JAX's ``pjit`` mode): the same draws
-on every rank and train-mode BatchNorm synchronised over the group.
+on every rank and train-mode BatchNorm synchronised over the group. With a
+``space`` layout it shards the fields' H as well (JAX's ``spatial_axis``):
+every rank runs the step on its stripe of its rows, and the convs exchange
+halos forward and backward (:mod:`.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from .hub.convert import param_paths
 from .logging_utils import HIST_BINS, HIST_Y_MAX
 from .losses import GridCellLoss, loss_hinge_disc, loss_hinge_gen, weight_fn
-from .models.common import draw_latents
+from .models.common import DRAWS_NOT_SHARED, draw_latents
 from .models.discriminators import draw_frames
 from .ops.norm import sync_batch_norm
 
@@ -227,7 +230,8 @@ def _split_scores(scores: torch.Tensor, n_real: int):
     return real[:, :1], real[:, 1:], generated[:, :1], generated[:, 1:]
 
 
-def _r1_penalty(model, real_seq: torch.Tensor, gen_seq: torch.Tensor, frames, n_real: int):
+def _r1_penalty(model, real_seq: torch.Tensor, gen_seq: torch.Tensor, frames, n_real: int,
+                space=None):
     """R1 (``training.py:482-525`` in JAX): ``0.5 * mean_b ||d(sum of real scores)/dx||^2``.
 
     The penalty scores the real half of the same real||generated concat
@@ -240,19 +244,29 @@ def _r1_penalty(model, real_seq: torch.Tensor, gen_seq: torch.Tensor, frames, n_
     discriminator's buffers are put back as that forward found them. No
     tensor of the autograd graph aliases a buffer, so putting them back
     leaves the double backward intact.
+
+    Under ``space`` ``real_seq`` is this rank's stripe. The scores are the
+    same on every rank of the space group, and the collectives' backward sums
+    over the ranks (:mod:`.parallel.spatial`), so the input gradient comes out
+    ``n_space`` times the score's and is divided back; its squares add up
+    over the stripes.
     """
     buffers = dict(model.discriminator.named_buffers())
     kept = {k: b.clone() for k, b in buffers.items()}
     x = real_seq.detach().requires_grad_(True)
     try:
-        scores = model.discriminate(torch.cat([x, _at_least_f32(gen_seq)]), frame_indices=frames)
+        scores = model.discriminate(torch.cat([x, _at_least_f32(gen_seq)]), frame_indices=frames,
+                                    space=space)
     finally:
         with torch.no_grad():
             for k, b in buffers.items():
                 b.copy_(kept[k])
     rs, rt, _, _ = _split_scores(scores, n_real)
     (gin,) = torch.autograd.grad(rs.sum() + rt.sum(), x, create_graph=True)
-    return 0.5 * _at_least_f32(gin).square().reshape(n_real, -1).sum(dim=1).mean()
+    sq = _at_least_f32(gin).square().reshape(n_real, -1).sum(dim=1)
+    if space is not None:
+        sq = space.sum(sq) / space.size**2
+    return 0.5 * sq.mean()
 
 
 def _layer_groups(model, names, depth: int, skip: int = 0) -> Dict[str, List[str]]:
@@ -389,9 +403,16 @@ def rank_generator(generator: Optional[torch.Generator], group) -> torch.Generat
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
+def _check_space(space, global_batch: bool) -> None:
+    if space is not None and not global_batch:
+        raise ValueError("an H-sharded step is a global-batch step: pass global_batch=True "
+                         "(the shard_map mode has no halos)")
+
+
 def _global_batch_scale(group, global_batch: bool) -> int:
     """The grid loss sums over the batch (quirk Q3): on the global batch it is the ranks' sum, so
-    each rank's term counts ``n`` times before the average over ``n`` ranks."""
+    each rank's term counts ``n`` times before the average over ``n`` ranks (a stripe's term,
+    its share of the field's, as well)."""
     if group is None or not global_batch:
         return 1
     import torch.distributed as dist
@@ -427,6 +448,26 @@ def _batches(model, images, future_images, compute_dtype):
     return images.to(compute_dtype), future_images, real_seq, real_seq.to(compute_dtype)
 
 
+def _draws(model, seq_len, generator, draws, group, global_batch, logging_forward):
+    """The step's draws: given, or drawn from ``generator`` (per rank in the shard_map mode).
+
+    A global-batch step on more than one rank refuses to draw from each
+    process's own global RNG: every rank must compute with the same draws.
+    """
+    if draws is not None:
+        return draws
+    if group is not None and not global_batch:
+        generator = rank_generator(generator, group)
+    elif group is not None and generator is None:
+        raise ValueError(DRAWS_NOT_SHARED)
+    return draw_step(model, seq_len, generator, logging_forward)
+
+
+def _field_height(images: torch.Tensor, space) -> Optional[int]:
+    """The field's H where ``images`` hold this rank's stripe of it (``None`` without a layout)."""
+    return None if space is None else images.shape[-2] * space.size
+
+
 def _compute_dtype(model, compute_dtype: Optional[torch.dtype]) -> torch.dtype:
     """``None`` means the parameters' dtype (float32, or float64 for a ``.double()`` model)."""
     return compute_dtype or next(model.parameters()).dtype
@@ -444,6 +485,8 @@ def make_train_step(
     r1_gamma: float = 0.0,
     group=None,
     global_batch: bool = False,
+    space=None,
+    batch_group=None,
 ):
     """Build ``train_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
@@ -486,37 +529,51 @@ def make_train_step(
     no averaging. The grid loss, a sum over the batch, counts ``n`` times on
     each of the ``n`` ranks, so with equal local batches the averaged losses
     and gradient are the global batch's. Every rank must call the step the
-    same way.
+    same way, and a global-batch step without ``draws`` or ``generator``
+    raises ``ValueError``.
+
+    ``space`` (a :class:`~.parallel.spatial.SpaceLayout`; global batch only)
+    is JAX's ``spatial_axis``: ``images`` / ``future_images`` are this rank's
+    stripe of its rows, ``group`` spans every rank of the mesh and
+    ``batch_group`` (read only with ``space``) the ranks of the other batch
+    rows (the mesh's data axis; ``None`` where it is 1). The generator's
+    BatchNorms synchronise over ``group``; the discriminator heads', whose
+    inputs every rank of a space group holds alike after the stripes' sum,
+    over ``batch_group``. The
+    gradients, the losses and the buffers come out the dense step's on the
+    global batch, and the same on every rank.
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
     n_gen = model.generation_steps
     compute_dtype = _compute_dtype(model, compute_dtype)
     _check_group(model, group)
+    _check_space(space, global_batch)
     grid_scale = _global_batch_scale(group, global_batch)
     per_rank = group is not None and not global_batch
+    head_group = batch_group if space is not None else group
 
     def train_step(state: TrainState, images, future_images, generator=None, draws=None):
         mdl = state.model
         images, future_images, real_seq, real_seq_c = _batches(
             mdl, images, future_images, compute_dtype)
-        if draws is None:
-            if per_rank:
-                generator = rank_generator(generator, group)
-            draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward)
+        draws = _draws(mdl, real_seq.shape[1], generator, draws, group, global_batch,
+                       logging_forward)
         b = images.shape[0]
         g_params, d_params = split_params(mdl)
         sync = sync_batch_norm(mdl, group if global_batch else None)
-        with sync, _mode(mdl, True):
+        sync_heads = sync_batch_norm(mdl.discriminator, head_group if global_batch else None)
+        with sync, sync_heads, _mode(mdl, True):
             d_losses, d_grads, d_r1 = [], [], []
             for z, frames in zip(draws.d_z, draws.d_frames):
                 with torch.no_grad():
-                    preds = mdl(images, z=z)
+                    preds = mdl(images, z=z, space=space)
                 gen_seq = torch.cat([images, preds], dim=1)
                 concat = torch.cat([real_seq_c, gen_seq], dim=0)
-                rs, rt, gs, gt = _split_scores(mdl.discriminate(concat, frame_indices=frames), b)
+                rs, rt, gs, gt = _split_scores(
+                    mdl.discriminate(concat, frame_indices=frames, space=space), b)
                 loss = loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt)
                 if r1_gamma > 0.0:
-                    r1 = _r1_penalty(mdl, real_seq, gen_seq, frames, b)
+                    r1 = _r1_penalty(mdl, real_seq, gen_seq, frames, b, space)
                     loss = loss + r1_gamma * r1
                     d_r1.append(r1.detach())
                 grads = _grads(loss, d_params)
@@ -526,7 +583,7 @@ def make_train_step(
                 d_grads.append(grads)
 
             def rollout(z):
-                return mdl(images, z=z)
+                return mdl(images, z=z, space=space)
 
             sum_preds, gen_scores = 0.0, []
             for z, frames in zip(draws.g_z, draws.g_frames):
@@ -538,9 +595,9 @@ def make_train_step(
                 else:
                     preds = rollout(z)
                 concat = torch.cat([real_seq_c, torch.cat([images, preds], dim=1)], dim=0)
-                gen_scores.append(mdl.discriminate(concat, frame_indices=frames)[b:])
+                gen_scores.append(mdl.discriminate(concat, frame_indices=frames, space=space)[b:])
                 sum_preds = sum_preds + _at_least_f32(preds)
-            grid = grid_loss(sum_preds / n_gen, future_images)
+            grid = grid_loss(sum_preds / n_gen, future_images, _field_height(images, space))
             if grid_scale != 1:
                 grid = grid * grid_scale
             g_disc_loss = loss_hinge_gen(_at_least_f32(torch.stack(gen_scores)))
@@ -552,7 +609,7 @@ def make_train_step(
             generated = None
             if logging_forward:
                 with torch.no_grad():
-                    generated = mdl(images, z=draws.log_z)
+                    generated = mdl(images, z=draws.log_z, space=space)
         if per_rank:  # replica-consistent state
             _average([t for t in mdl.buffers() if t.is_floating_point()], group)
         state.step += 1
@@ -592,7 +649,7 @@ def make_train_step(
 
 
 def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None, group=None,
-                   global_batch: bool = False):
+                   global_batch: bool = False, space=None):
     """Build ``eval_step(state, images, future_images, generator=None, draws=None) -> metrics``.
 
     The validation step (``training.py:731-802`` in JAX): the same losses
@@ -604,11 +661,13 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None, group=
     kernels' bf16 variants; the mean of the samples and the losses are at
     least f32. ``group`` and ``global_batch`` as in :func:`make_train_step`:
     per-rank draws (or, with ``global_batch``, the same draws on every rank)
-    and the metrics averaged over the group.
+    and the metrics averaged over the group; ``space`` as there (the
+    discriminators' eval BatchNorms take no group).
     """
     grid_loss = GridCellLoss(weight_fn=weight_fn, precip_weight_cap=model.precip_weight_cap)
     compute_dtype = _compute_dtype(model, compute_dtype)
     _check_group(model, group)
+    _check_space(space, global_batch)
     grid_scale = _global_batch_scale(group, global_batch)
 
     @torch.no_grad()
@@ -616,16 +675,13 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None, group=
         mdl = state.model
         images, future_images, real_seq, real_seq_c = _batches(
             mdl, images, future_images, compute_dtype)
-        if draws is None:
-            if group is not None and not global_batch:
-                generator = rank_generator(generator, group)
-            draws = draw_step(mdl, real_seq.shape[1], generator, logging_forward=False)
+        draws = _draws(mdl, real_seq.shape[1], generator, draws, group, global_batch, False)
         b = images.shape[0]
 
         def score(z, frames):
-            preds = mdl(images, z=z)
+            preds = mdl(images, z=z, space=space)
             concat = torch.cat([real_seq_c, torch.cat([images, preds], dim=1)], dim=0)
-            return preds, mdl.discriminate(concat, frame_indices=frames)
+            return preds, mdl.discriminate(concat, frame_indices=frames, space=space)
 
         with _mode(mdl, False):
             d_losses = []
@@ -633,7 +689,8 @@ def make_eval_step(model, *, compute_dtype: Optional[torch.dtype] = None, group=
                 rs, rt, gs, gt = _split_scores(score(z, frames)[1], b)
                 d_losses.append(loss_hinge_disc(gs, rs) + loss_hinge_disc(gt, rt))
             preds, scores = zip(*(score(z, f) for z, f in zip(draws.g_z, draws.g_frames)))
-        grid = grid_loss(_at_least_f32(torch.stack(preds)).mean(dim=0), future_images)
+        grid = grid_loss(_at_least_f32(torch.stack(preds)).mean(dim=0), future_images,
+                         _field_height(images, space))
         if grid_scale != 1:
             grid = grid * grid_scale
         gen_scores = _at_least_f32(torch.stack([s[b:] for s in scores]))

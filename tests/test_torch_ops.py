@@ -171,6 +171,8 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.parallel.dp\n"
         "import skillful_nowcasting_tpu_torch.parallel.spatial\n"
         "import skillful_nowcasting_tpu_torch.layers.coord_conv\n"
+        "import skillful_nowcasting_tpu_torch.ops.norm, skillful_nowcasting_tpu_torch.ops.conv\n"
+        "import skillful_nowcasting_tpu_torch.layers.convgru, skillful_nowcasting_tpu_torch.dgmr\n"
         "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"

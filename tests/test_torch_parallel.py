@@ -25,6 +25,7 @@ checkpoint, both ranks resuming it). The mesh and layout errors need no
 processes.
 """
 
+import copy
 import os
 import socket
 import subprocess
@@ -294,10 +295,11 @@ def test_mesh_and_layout_errors(monkeypatch):
         dp._validate_layout(one, "nope", None)
     with pytest.raises(ValueError, match="needs the GSPMD partitioner"):
         dp._validate_layout(one, "shard_map", "space")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.warns(UserWarning, match="no effect on a 1-device mesh"):  # JAX's warning
         dp._validate_layout(one, "pjit", "space")
     # The spatially sharded forward: a mesh of one is the dense forward; H must divide by
-    # 32 x n_space (checked before anything is sent); train mode and a space axis left unused raise.
+    # 32 x n_space and every rank must pass z or a generator (both checked before anything is
+    # sent); a space axis left unused raises.
     model = DGMR(**TRAIN_TINY, device="cpu").eval()
     x = torch.rand((1, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
     z = torch.randn((1, 8, 2, 2), generator=torch.Generator().manual_seed(2))
@@ -307,12 +309,17 @@ def test_mesh_and_layout_errors(monkeypatch):
         two = Mesh({"data": 1, "space": 2}, 0, torch.device("cpu"))
         with pytest.raises(ValueError, match="must divide by 32 x 2"):
             parallel.make_spatial_forward(model, two)(x[..., :32, :], z=z)
+        with pytest.raises(ValueError, match="same generator"):
+            parallel.make_spatial_forward(model, two)(x)
     with pytest.raises(ValueError, match="spatial_axis=None"):
         parallel.make_spatial_forward(model, two, spatial_axis=None)
     with pytest.raises(ValueError, match="axes are 'data' and 'space'"):
         parallel.make_spatial_forward(model, two, batch_axis=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.make_spatial_forward(model.train(), one)
+    # Train mode on a mesh of one: the dense train forward (BatchNorm on the batch, state advanced).
+    dense = copy.deepcopy(model).train()
+    torch.testing.assert_close(parallel.make_spatial_forward(model.train(), one)(x, z=z),
+                               dense(x, z=z), rtol=0, atol=0)
+    torch.testing.assert_close(model.state_dict(), dense.state_dict(), rtol=0, atol=0)
     # Rank 1 of a 2-rank data axis: its rows of a global batch; a CUDA mesh refuses a CPU model.
     second = Mesh({"data": 2, "space": 1}, 1, torch.device("cpu"))
     batch = torch.arange(8.0).reshape(4, 2)

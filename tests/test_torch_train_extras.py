@@ -8,7 +8,8 @@
   gradients, the post-step parameters and BN/SN state at max-abs <= 1e-3 of
   each tensor; every ``train/grad_norm/*`` key equal and its value within
   1e-6; every histogram key equal, its counts equal but for the few elements
-  that two correct implementations may bin apart (:func:`ambiguous_elements`),
+  that two correct implementations may bin apart
+  (``torch_port_helpers.ambiguous_elements``),
   and its min / max / sum / sum of squares at rtol 1e-4.
 * The R1 forward puts the discriminator's buffers back as it found them.
 * ``compute_dtype=torch.bfloat16`` on the same weights and draws (Adam): the
@@ -23,21 +24,15 @@ The JAX step's grid loss is that of the plain step too: R1 and the watch
 flags touch only D and the metrics, and the G phase's forwards do not read D.
 """
 
-import threading
-
 import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from skillful_nowcasting_tpu import training as jtraining
 from skillful_nowcasting_tpu_torch import training
 from skillful_nowcasting_tpu_torch.hub import state_dict_from_variables
 from skillful_nowcasting_tpu_torch.ops import convgru_rollout, gblock_fused
 from test_torch_train import (  # noqa: F401  (setup is a fixture)
-    LR,
     METRIC_RTOL,
     TINY,
     assert_trees_close,
@@ -47,15 +42,18 @@ from test_torch_train import (  # noqa: F401  (setup is a fixture)
     sgd_state,
     tree_to_torch,
 )
-from torch_port_helpers import f64, run_once, t
+from torch_port_helpers import (
+    R1_GAMMA,
+    assert_histograms_match,
+    f64,
+    jax_r1_step_start,
+    run_once,
+    t,
+)
 
 torch.set_num_threads(1)
 
-R1_GAMMA = 10.0
 NORM_RTOL = 1e-6
-HIST_RTOL = 1e-4
-EDGE_Y = 2e-5  # symlog units: about 10 f32 ulps at |y| = 28
-NOISE = 1e-12  # of a group's max-abs: float64 noise of an exactly-zero gradient
 BF16_GRID_RTOL = 0.1
 BF16_R1_RTOL = 0.25
 
@@ -79,34 +77,8 @@ def step_draws(setup, dtype):
 @pytest.fixture(scope="module")
 def r1_steps(setup, tmp_path_factory):
     """The JAX float64 R1 + watch step (once per run) and the port's, on the same draws."""
-    jmodel, variables, x, y, _ = setup
+    _, variables, _, _, _ = setup
     draws = step_draws(setup, torch.float64)
-
-    def start():
-        with jax.enable_x64(True):
-            v64 = f64(variables)
-            sgd = (optax.sgd(LR[0]), optax.sgd(LR[1]))
-            g0, d0 = jtraining.split_params(v64["params"])
-            state = jtraining.TrainState(
-                params=v64["params"], batch_stats=v64["batch_stats"], spectral=v64["spectral"],
-                g_opt_state=sgd[0].init(g0), d_opt_state=sgd[1].init(d0),
-                step=jnp.zeros((), jnp.int32),
-            )
-            step = jax.jit(jtraining.make_train_step(
-                jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
-                compute_dtype=jnp.float64, r1_gamma=R1_GAMMA, watch_gradients=True,
-                watch_histograms=True))
-            args = (state, x.astype(np.float64), y.astype(np.float64), jax.random.key(7))
-            lowered, compiled = step.lower(*args), []
-        compiling = threading.Thread(target=lambda: compiled.append(lowered.compile()))
-        compiling.start()
-
-        def finish():
-            compiling.join()
-            with jax.enable_x64(True):
-                return jax.tree.map(np.array, compiled[0](*args))
-
-        return finish
 
     def port_step():
         model = port_model(variables, torch.float64)
@@ -115,7 +87,8 @@ def r1_steps(setup, tmp_path_factory):
             watch_gradients=True, watch_histograms=True)
         return model, step(sgd_state(model), *batches(setup, torch.float64), draws=draws)
 
-    return run_once(tmp_path_factory, "test_torch_train_extras_jax_r1_step", start, port_step)
+    return run_once(tmp_path_factory, "test_torch_train_extras_jax_r1_step",
+                    jax_r1_step_start(setup), port_step)
 
 
 def test_r1_step_metrics_match_jax(r1_steps):
@@ -150,63 +123,11 @@ def test_r1_step_state_matches_jax(r1_steps):
     assert_trees_close({k: state[k] for k in want}, want)
 
 
-def ambiguous_elements(values: np.ndarray) -> int:
-    """Elements whose bin two correct implementations may disagree on, in one tensor group.
-
-    * Within ``EDGE_Y`` of a bin edge in the symlog domain: XLA's and
-      torch's f32 ``log`` / ``log1p`` differ in the last bit for up to a few
-      percent of arguments (measured here), which moves such an element to
-      the neighbouring bin.
-    * Below ``NOISE`` of the group's largest magnitude: a gradient that is
-      0 in exact arithmetic (a conv bias in front of a train-mode BatchNorm)
-      is float64 rounding noise whose sign and size differ between the two
-      implementations (an exact 0 stays 0), and the bins resolve magnitudes
-      down to 1e-12.
-    """
-    v = np.concatenate([np.ravel(a).astype(np.float32).astype(np.float64) for a in values])
-    y = np.arcsinh(v / 1e-12) / np.log(10.0)
-    edge = np.abs((y + 28.0) / (56.0 / 64) - np.round((y + 28.0) / (56.0 / 64))) * (56.0 / 64)
-    top = max(np.abs(a).max() for a in values)
-    mag = np.concatenate([np.abs(np.ravel(a)) for a in values])
-    noise = (mag > 0) & (mag < NOISE * top)
-    return int(np.sum((edge < EDGE_Y) | noise))
-
-
 def test_histograms_match_jax(r1_steps, setup):
-    """Counts equal but for the elements two correct implementations may bin apart.
-
-    Per histogram, the counts' L1 distance is at most twice the number of
-    :func:`ambiguous_elements` of the JAX step's own tensors of that group
-    (so a group without any has the same counts), and over all histograms
-    at most 1e-4 of the elements; min / max / sum / sum of squares at rtol
-    1e-4.
-    """
+    """Counts equal but for the elements two correct implementations may bin apart
+    (``torch_port_helpers.assert_histograms_match``)."""
     (new_state, want), (model, got) = r1_steps
-    spectral = setup[1]["spectral"]
-    tensors = {
-        "train/hist/params/": (tree_to_torch(new_state.params, spectral), 2, 0),
-        "train/hist/grads/": (tree_to_torch(want["g_grads"], spectral), 2, 0),
-        "train/hist/grads/discriminator/": (
-            tree_to_torch(jax.tree.map(lambda a: a[-1], want["d_grads"]), spectral), 1, 1),
-    }
-    want, got = want["train/hist"], got["train/hist"]
-    assert set(got) == set(want)
-    total = sum(p.numel() for p in model.parameters())
-    for group in ("train/hist/params/", "train/hist/grads/"):
-        assert sum(int(h["counts"].sum()) for k, h in got.items() if k.startswith(group)) == total
-    n_moved = n_all = 0
-    for prefix, (values, depth, skip) in tensors.items():
-        for key, names in training._layer_groups(model, values, depth, skip).items():
-            w, g = want[prefix + key], got[prefix + key]
-            assert g["counts"].dtype == torch.int32
-            loose = ambiguous_elements([np.array(values[n]) for n in names])
-            moved = int(np.abs(g["counts"].numpy().astype(np.int64) - w["counts"]).sum())
-            assert moved <= 2 * loose, (key, moved, loose)
-            n_moved, n_all = n_moved + moved, n_all + int(w["counts"].sum())
-            for stat in ("min", "max", "sum", "sumsq"):
-                np.testing.assert_allclose(g[stat].item(), float(w[stat]), rtol=HIST_RTOL,
-                                           atol=1e-30, err_msg=f"{key} {stat}")
-    assert n_all == 2 * total and n_moved <= 1e-4 * n_all, (n_moved, n_all)
+    assert_histograms_match(got["train/hist"], want, new_state, setup[1]["spectral"], model)
 
 
 def test_r1_penalty_puts_the_discriminator_state_back(setup):

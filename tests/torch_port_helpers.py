@@ -266,8 +266,8 @@ def tree_to_torch(tree, spectral):
     return {k: v for k, v in sd.items() if not k.endswith(("._u", "._v"))}
 
 
-def assert_trees_close(got, want, tol=TREE_TOL):
-    """max|got - want| <= tol * max(max|want|, FLOOR * the group's largest |want|), per tensor."""
+def trees_worst(got, want) -> tuple:
+    """The worst ``(max|got - want| / max(max|want|, FLOOR * the group's largest |want|), name)``."""
     assert set(got) == set(want)
     group = max(float(np.abs(np.array(w)).max()) for w in want.values() if np.size(w))
     worst = (0.0, "")
@@ -278,13 +278,20 @@ def assert_trees_close(got, want, tol=TREE_TOL):
         got_k = got[k].detach() if isinstance(got[k], torch.Tensor) else got[k]
         err = np.abs(np.array(got_k, np.float64) - w).max()
         worst = max(worst, (err / max(np.abs(w).max(), FLOOR * group), k))
+    return worst
+
+
+def assert_trees_close(got, want, tol=TREE_TOL):
+    """max|got - want| <= tol * max(max|want|, FLOOR * the group's largest |want|), per tensor."""
+    worst = trees_worst(got, want)
     assert worst[0] <= tol, worst
 
 
-def jax_train_step_start(setup):
+def jax_train_step_start(setup, **extras):
     """``start`` of the JAX B=2 float64 SGD train step (``run_once(..., "test_torch_train_jax_step")``).
 
-    Its result is ``(new_state, metrics)`` with ``return_grads``.
+    Its result is ``(new_state, metrics)`` with ``return_grads``. ``extras``
+    go to ``make_train_step`` (:func:`jax_r1_step_start`).
     """
     import jax.numpy as jnp
 
@@ -297,8 +304,87 @@ def jax_train_step_start(setup):
             state, sgd = sgd_train_state(jmodel, f64(variables))
             step = jax.jit(jtraining.make_train_step(
                 jmodel, logging_forward=False, return_grads=True, optimizers=sgd,
-                compute_dtype=jnp.float64))
+                compute_dtype=jnp.float64, **extras))
         return compile_in_background(step, state, x.astype(np.float64), y.astype(np.float64),
                                      jax.random.key(TRAIN_KEY))
 
     return start
+
+
+R1_GAMMA = 10.0
+
+
+def jax_r1_step_start(setup):
+    """``start`` of that step with ``r1_gamma=10`` and both watch flags
+    (``run_once(..., "test_torch_train_extras_jax_r1_step")``)."""
+    return jax_train_step_start(setup, r1_gamma=R1_GAMMA, watch_gradients=True,
+                                watch_histograms=True)
+
+
+# Histogram parity (watch_histograms): the bins two correct implementations may disagree on.
+HIST_RTOL = 1e-4
+EDGE_Y = 2e-5  # symlog units: about 10 f32 ulps at |y| = 28
+NOISE = 1e-12  # of a group's max-abs: float64 noise of an exactly-zero gradient
+
+
+def ambiguous_elements(values) -> int:
+    """Elements whose bin two correct implementations may disagree on, in one tensor group.
+
+    * Within ``EDGE_Y`` of a bin edge in the symlog domain: XLA's and
+      torch's f32 ``log`` / ``log1p`` differ in the last bit for up to a few
+      percent of arguments (measured here), which moves such an element to
+      the neighbouring bin.
+    * Below ``NOISE`` of the group's largest magnitude: a gradient that is
+      0 in exact arithmetic (a conv bias in front of a train-mode BatchNorm)
+      is float64 rounding noise whose sign and size differ between the two
+      implementations (an exact 0 stays 0), and the bins resolve magnitudes
+      down to 1e-12.
+    """
+    v = np.concatenate([np.ravel(a).astype(np.float32).astype(np.float64) for a in values])
+    y = np.arcsinh(v / 1e-12) / np.log(10.0)
+    edge = np.abs((y + 28.0) / (56.0 / 64) - np.round((y + 28.0) / (56.0 / 64))) * (56.0 / 64)
+    top = max(np.abs(a).max() for a in values)
+    mag = np.concatenate([np.abs(np.ravel(a)) for a in values])
+    noise = (mag > 0) & (mag < NOISE * top)
+    return int(np.sum((edge < EDGE_Y) | noise))
+
+
+def assert_histograms_match(got, want, new_state, spectral, model) -> tuple:
+    """The port's ``train/hist`` against the JAX step's: counts equal but for ambiguous elements.
+
+    ``got`` / ``want`` are the two steps' ``train/hist``, ``new_state`` the
+    JAX step's state after it, ``model`` a port model of the same config
+    (for the layer paths). Per histogram, the counts' L1 distance is at most
+    twice the number of :func:`ambiguous_elements` of the JAX step's own
+    tensors of that group (so a group without any has the same counts), and
+    over all histograms at most 1e-4 of the elements; min / max / sum / sum
+    of squares at rtol 1e-4. Returns ``(moved, elements)``.
+    """
+    from skillful_nowcasting_tpu_torch import training
+
+    tensors = {
+        "train/hist/params/": (tree_to_torch(new_state.params, spectral), 2, 0),
+        "train/hist/grads/": (tree_to_torch(want["g_grads"], spectral), 2, 0),
+        "train/hist/grads/discriminator/": (
+            tree_to_torch(jax.tree.map(lambda a: a[-1], want["d_grads"]), spectral), 1, 1),
+    }
+    want = want["train/hist"]
+    assert set(got) == set(want)
+    total = sum(p.numel() for p in model.parameters())
+    for group in ("train/hist/params/", "train/hist/grads/"):
+        assert sum(int(np.asarray(h["counts"]).sum()) for k, h in got.items()
+                   if k.startswith(group)) == total
+    n_moved = n_all = 0
+    for prefix, (values, depth, skip) in tensors.items():
+        for key, names in training._layer_groups(model, values, depth, skip).items():
+            w, g = want[prefix + key], got[prefix + key]
+            assert np.asarray(g["counts"]).dtype == np.int32
+            loose = ambiguous_elements([np.array(values[n]) for n in names])
+            moved = int(np.abs(np.asarray(g["counts"]).astype(np.int64) - w["counts"]).sum())
+            assert moved <= 2 * loose, (key, moved, loose)
+            n_moved, n_all = n_moved + moved, n_all + int(w["counts"].sum())
+            for stat in ("min", "max", "sum", "sumsq"):
+                np.testing.assert_allclose(float(g[stat]), float(w[stat]), rtol=HIST_RTOL,
+                                           atol=1e-30, err_msg=f"{key} {stat}")
+    assert n_all == 2 * total and n_moved <= 1e-4 * n_all, (n_moved, n_all)
+    return n_moved, n_all
