@@ -9,9 +9,9 @@ the top kernels by device time) and prints no result line.
 1. Device: needs CUDA; prints the card's name and power limit; TF32 off.
 2. Build: compiles the hand-written kernels from ``skillful_nowcasting_tpu_torch/csrc``
    and prints ptxas's registers, shared memory and spills per kernel, and the
-   number of HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-   kernel's SASS (``cuobjdump -sass``); the bf16 kernels must show both and
-   no spill.
+   number of HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+   instructions in each kernel's SASS (``cuobjdump -sass``); every kernel,
+   f32 and bf16, must show HGMMA and UTMALDG, no HMMA and no spill.
 3. Kernels vs their plain PyTorch versions on the card, at the main paths'
    shapes: a request's batch (B=2) and the tile batch of tiled_nowcast_device
    (B=16 tiles, N=288 GBlock rows), each in f32 and in bf16; max-abs
@@ -19,9 +19,11 @@ the top kernels by device time) and prints no result line.
    the largest output), the same bits on a second call; times from CUDA
    events, beside the bound (the larger of FLOPs at the tensor-core peak,
    3xTF32 for f32 and bf16 for bf16, and bytes at the memory peak). Beside
-   each bf16 GBlock shape, a conv yardstick: cuDNN's bf16 ``F.conv2d``
-   (channels_last) for the block's two 3x3 convs (a diagnostic; the port
-   never calls it).
+   each GBlock shape, a conv yardstick: cuDNN's ``F.conv2d`` in the shape's
+   dtype (f32 with TF32 off; channels_last) for the block's two 3x3 convs (a
+   diagnostic; the port never calls it). Each f32 kernel's summed time at
+   each batch is printed beside its time before the Hopper redesign (the
+   ``mma.sync`` kernels, ``PERF.md``).
 4. The slice at full width: ``DGMR()`` (on the card by default; 256x256, 18
    steps, latent 768, context 384, 6 samples) with seeded random weights
    answers 3 requests through ``make_generate`` from a CPU batch; both
@@ -295,9 +297,29 @@ def gblock_work(n: int, hw, cin: int, cout: int, elem: int = 4):
     return flops, elem * values + 4.0 * (4 * cin + cout)
 
 
-BF16_KERNELS = ("gru_rollout_bf16_kernel", "gblock_conv1_bf16_kernel", "gblock_conv2_bf16_kernel")
 KERNEL_FUNCTIONS = ("gru_rollout_kernel", "gblock_conv1_kernel", "gblock_conv2_kernel",
-                    *BF16_KERNELS)
+                    "gru_rollout_bf16_kernel", "gblock_conv1_bf16_kernel",
+                    "gblock_conv2_bf16_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")  # wgmma, TMA load, mma.sync
+# The f32 kernels' summed phase-3 times before their Hopper redesign (3xTF32 mma.sync fed by
+# cp.async; PERF.md section 6, the largest of the runs of that design), ms, by bucket.
+F32_BEFORE_MS = {("convgru_rollout", "batch_2"): 3.08, ("gblock_fused", "batch_2"): 5.91,
+                 ("convgru_rollout", f"tile_batch_{TILE_BATCH}"): 16.23,
+                 ("gblock_fused", f"tile_batch_{TILE_BATCH}"): 40.96,
+                 ("convgru_rollout", "space_windows_512"): 4.65,
+                 ("gblock_fused", "space_windows_512"): 5.74}
+
+
+def f32_against_before(results: dict, buckets) -> None:
+    """Each f32 kernel's summed time in ``buckets`` beside its time before the Hopper redesign."""
+    for (name, bucket), before in F32_BEFORE_MS.items():
+        r = results.get(name, {})
+        r = r if bucket == "batch_2" else r.get(bucket)
+        if bucket in buckets and r:
+            print(f"{name} {bucket}: {r['ms']:.4f} ms summed over its shapes, bound "
+                  f"{r['bound_ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% of bound); "
+                  f"before the Hopper redesign (mma.sync, PERF.md) {before} ms: "
+                  f"{'faster' if r['ms'] < before else 'NOT faster'}")
 
 
 def kernel_label(mangled: str) -> str | None:
@@ -311,7 +333,7 @@ def kernel_label(mangled: str) -> str | None:
 
 
 def sass_counts(_build) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel in the library's SASS."""
+    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions per kernel's SASS."""
     from pathlib import Path
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -322,10 +344,10 @@ def sass_counts(_build) -> dict:
         if "Function : " in line:
             label = kernel_label(line.split("Function : ", 1)[1].strip())
             if label is not None:
-                counts[label] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[label] = dict.fromkeys(SASS_OPS, 0)
         elif label is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[label][op] += op in line
+            for op in SASS_OPS:
+                counts[label][op] += f" {op}" in line
     return counts
 
 
@@ -2670,16 +2692,18 @@ def main() -> None:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     spilled = spills(report)
-    for label, counts in sass_counts(_build).items():
+    sass = sass_counts(_build)
+    for label, counts in sass.items():
         print(f"sass {label}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG, "
-              f"spill {spilled.get(label, 'not reported')} bytes")
-        if label.split("<")[0] in BF16_KERNELS:
-            if not (counts["HGMMA"] and counts["UTMALDG"]):
-                fail(f"{label}: no HGMMA or no UTMALDG in its SASS: {counts}")
-            if spilled.get(label) != 0:
-                fail(f"{label}: ptxas reports {spilled.get(label)} bytes of spill")
-    if not any(label.split("<")[0] in BF16_KERNELS for label in spilled):
-        fail("no bf16 kernel in ptxas's report")
+              f"{counts['HMMA']} HMMA, spill {spilled.get(label, 'not reported')} bytes")
+        if not (counts["HGMMA"] and counts["UTMALDG"]) or counts["HMMA"]:
+            fail(f"{label}: wants HGMMA and UTMALDG and no HMMA in its SASS: {counts}")
+        if spilled.get(label) != 0:
+            fail(f"{label}: ptxas reports {spilled.get(label)} bytes of spill")
+    missing = {name for name in KERNEL_FUNCTIONS
+               if not any(label.split("<")[0] == name for label in sass)}
+    if missing:
+        fail(f"kernels missing from the library's SASS: {sorted(missing)}")
 
     stamp("1-2")
     # 3. Kernels vs plain versions, at the main path's shapes, in f32 and in bf16.
@@ -2774,17 +2798,18 @@ def main() -> None:
                 compare(f"gblock_fused{suffix}", gblock_fused, gblock_fused_reference, args,
                         f"x={tuple(args[0].shape)} cout={cout}", reps=reps,
                         work=gblock_work(n, hw, cin, cout, elem), kind=kind, bucket=bucket)
-                if kind == "bf16":  # NHWC memory viewed as NCHW is channels_last
-                    xc = args[0].permute(0, 3, 1, 2)
-                    w1, w2 = (k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                              for k in args[1:3])
-                    conv = torch.nn.functional.conv2d
-                    yard = time_ms(torch, lambda: conv(conv(xc, w1, padding=1), w2, padding=1),
-                                   reps)
-                    print(f"gblock_fused_bf16 x={tuple(args[0].shape)} cout={cout}: conv "
-                          f"yardstick (cuDNN bf16 F.conv2d, channels_last, the block's two 3x3 "
-                          f"convs, no affine or shortcut) {yard:.4f} ms")
+                # NHWC memory viewed as NCHW is channels_last.
+                xc = args[0].permute(0, 3, 1, 2)
+                w1, w2 = (k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                          for k in args[1:3])
+                conv = torch.nn.functional.conv2d
+                yard = time_ms(torch, lambda: conv(conv(xc, w1, padding=1), w2, padding=1), reps)
+                print(f"gblock_fused{suffix} x={tuple(args[0].shape)} cout={cout}: conv "
+                      f"yardstick (cuDNN {kind} F.conv2d{', TF32 off' if kind == 'f32' else ''}, "
+                      f"channels_last, the block's two 3x3 convs, no affine or shortcut) "
+                      f"{yard:.4f} ms")
                 del args
+    f32_against_before(results, ("batch_2", f"tile_batch_{TILE_BATCH}"))
     torch.cuda.empty_cache()
 
     stamp("3")
@@ -2923,6 +2948,7 @@ def main() -> None:
             del whole, args
     print("19a: every window's stripe equals the kernel on the whole level, bit for bit, f32 and "
           "bf16, both ranks")
+    f32_against_before(results, (SPACE_BUCKET,))
     torch.cuda.empty_cache()
     by_path.update(spatial_forward(torch))
 

@@ -1,30 +1,50 @@
-// The halo-box implicit GEMM shared by the bf16 kernels (gblock_fused.cu,
-// gru_rollout.cu): a stride-1 SAME 3x3 convolution over an NHWC bf16
-// activation, one warpgroup per 64 output pixels, on wgmma (hopper.cuh).
+// The halo-box implicit GEMM shared by the port's kernels (gblock_fused.cu,
+// gru_rollout.cu): a stride-1 SAME 3x3 convolution over an NHWC activation,
+// one warpgroup per 64 output pixels, on wgmma (hopper.cuh). bf16 operands
+// take bf16 wgmma; f32 operands take 3xTF32 on tf32 wgmma.
 //
 // A warpgroup's 64 output rows are one 8x8 pixel patch of one image. TMA
-// loads the patch's 10x10 halo box of 64 channels (one "chunk") into shared
-// memory, starting at (x0 - 1, y0 - 1), so the hardware zero-fills the
-// out-of-image taps: SAME padding at no cost. Each of the 9 taps reads the
-// same box at a shifted offset: ldmatrix takes one row address per lane, so
-// the shifted gather is free, and the 128-byte swizzle keeps the eight rows
-// of each 8x8 matrix (eight neighbouring pixels) on distinct banks. A group
-// is one (chunk, tap): four k16 steps against a K-major B tile of 64 input
-// channels of that tap. The A registers are double-buffered across groups
-// (run_groups).
+// loads the patch's 10x10 halo box of one "chunk" of channels (64 bf16 or 32
+// f32: 128 bytes a pixel either way) into shared memory, starting at
+// (x0 - 1, y0 - 1), so the hardware zero-fills the out-of-image taps: SAME
+// padding at no cost. Each of the 9 taps reads the same box at a shifted
+// offset: ldmatrix takes one row address per lane, so the shifted gather is
+// free, and the 128-byte swizzle keeps the eight rows of each 8x8 matrix
+// (eight neighbouring pixels) on distinct banks. A group is one (chunk,
+// tap): four k16 (bf16) or k8 (tf32) steps against a K-major B tile of that
+// chunk's input channels of that tap.
+//
+// bf16: the A registers are double-buffered across groups (run_groups) and
+// the tensor cores accumulate straight into the f32 accumulators.
+//
+// f32 (3xTF32, run_groups_tf32): each A fragment is split in registers
+// into a TF32 high part and a TF32 remainder (split_tf32), and the weights
+// come pre-split by the wrapper as a [hi | lo] pair of tiles, so each k8
+// step is three wgmma (lo * hi, hi * lo, hi * hi; lo * lo, ~2^-20 of a
+// product, is dropped). The tensor cores truncate when they add into an f32
+// accumulator: summed straight into one accumulator over K = 6912 (conv2 of
+// the 768-channel GBlock) that bias reached 2.2e-4 in the mma.sync kernels
+// this design replaced, against a bar of 1e-4. So each group's twelve
+// products start from 0 in a group accumulator (scale-d 0 on the first) and
+// reach the running sum through one IEEE round-to-nearest add on the CUDA
+// cores per group (32 channels of one tap: the same rounding as those
+// kernels' 32-deep K-tiles). The group accumulator costs BN / 2 registers
+// and a wait on each group; group g + 1's gather overlaps group g's wgmma,
+// and the block's second consumer warpgroup keeps the tensor cores busy
+// across the wait.
 
 #pragma once
 
 #include "hopper.cuh"
-#include "igemm.cuh"  // cdiv, sm_count, aligned16
 
 namespace dgmr {
 
 constexpr int kSmemLimit = 232448;                     // a block's shared memory on an H100
-constexpr int kChunk = 64;                             // channels per box and per B row
+constexpr int kChunk = 64;                             // bf16 channels per box and per B row
+constexpr int kChunkF32 = 32;                          // f32 channels per box and per B row
 constexpr int kPatch = 8;                              // output patch side (64 pixels)
 constexpr int kHalo = kPatch + 2;                      // halo box side
-constexpr int kBoxBytes = kHalo * kHalo * kChunk * 2;  // 12800
+constexpr int kBoxBytes = kHalo * kHalo * 128;         // 12800: 128 bytes a pixel
 constexpr int kBoxSlot = (kBoxBytes + 1023) / 1024 * 1024;
 
 // The 8x8 patches of an (N, H, W) activation, image-major.
@@ -121,12 +141,207 @@ struct Ring {
   }
 };
 
-// NHWC bf16 activation (C % 8 == 0) as a TMA map with the 10x10x64 halo box.
-inline cudaError_t halo_map(CUtensorMap* map, const void* ptr, int n, int h, int w, int c) {
+// acc = the sum of `groups` groups in 3xTF32, each from a fresh group
+// accumulator added to acc on the CUDA cores. gather(g, a) waits for group
+// g's operands, gathers its A fragments into a and returns the shared
+// address of its B pair ([hi | lo] tiles of N rows of 32 channels);
+// retired(g) runs once group g's wgmma has completed (its B pair is free).
+// Group g + 1's gather overlaps group g's wgmma; its split into TF32 halves
+// waits for g's registers (at N = 128 a second pair of halves would spill).
+template <int N, class Gather, class Retired>
+__device__ __forceinline__ void run_groups_tf32(float (&acc)[N / 2], int groups, Gather&& gather,
+                                                Retired&& retired) {
+  float part[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = part[i] = 0.f;
+  uint32_t raw[4][4], hi[4][4], lo[4][4];
+  uint32_t tile = groups > 0 ? gather(0, raw) : 0;
+  for (int g = 0; g < groups; ++g) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_tf32(raw[s][r], hi[s][r], lo[s][r]);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t b_hi = tile + 32 * s, b_lo = b_hi + N * 128;
+      WgmmaTf32<N>::mma(part, lo[s], desc_k_sw128(b_hi), s > 0);
+      WgmmaTf32<N>::mma(part, hi[s], desc_k_sw128(b_lo), 1);
+      WgmmaTf32<N>::mma(part, hi[s], desc_k_sw128(b_hi), 1);
+    }
+    wgmma_commit();
+    const uint32_t next = g + 1 < groups ? gather(g + 1, raw) : 0;
+    wgmma_wait<0>();
+    fence_operands(part);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+    retired(g);
+    tile = next;
+  }
+}
+
+// Group g of an f32 conv's K walk: the 9 taps of each 32-channel chunk, then
+// (g >= g3: a GBlock's 1x1 shortcut) one group per chunk at the box's centre.
+// A unit walks groups [g0, g1): a halo box lands at its first group and at
+// each chunk's first tap, and is released after its last.
+struct F32Group {
+  int kc, tap;
+  bool sc, first, last;
+  __device__ F32Group(int g, int g0, int g1, int g3) {
+    sc = g >= g3;
+    kc = sc ? g - g3 : g / 9;
+    tap = sc ? 4 : g % 9;
+    first = sc || tap == 0 || g == g0;
+    last = sc || tap == 8 || g == g1 - 1;
+  }
+};
+
+// A conv block: two consumer warpgroups and a producer warpgroup.
+constexpr int kConsumers = 2;  // warpgroups, one 8x8 patch each
+constexpr int kConvThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kAStages = 2;  // halo boxes per consumer
+constexpr int kMaxBStages = 8;
+
+// An f32 conv block's shared-memory pipeline: per consumer warpgroup a ring
+// of kAStages halo boxes, and one ring of `stages` B pairs both consumers
+// read (their two patches share the output columns). A slot holds the
+// widest pair the block loads (slot_bytes); each unit's pair is BN wide.
+struct F32Pipe {
+  uint64_t* a_full;  // [consumer * kAStages + slot]
+  uint64_t* a_empty;
+  uint64_t* b_full;  // [slot]
+  uint64_t* b_empty;
+  uint8_t* boxes;
+  uint8_t* ring;
+  int stages;
+  int slot_bytes;  // the widest B pair: 2 BN 128
+
+  // Lay the pipeline out at `base` (1024-aligned): barriers in its first
+  // 1024 bytes, the boxes at `boxes_at`, then the B ring.
+  __device__ F32Pipe(uint8_t* base, uint8_t* boxes_at, int b_stages, int max_bn)
+      : a_full(reinterpret_cast<uint64_t*>(base)),
+        a_empty(a_full + kConsumers * kAStages),
+        b_full(a_empty + kConsumers * kAStages),
+        b_empty(b_full + kMaxBStages),
+        boxes(boxes_at),
+        ring(boxes_at + kConsumers * kAStages * kBoxSlot),
+        stages(b_stages),
+        slot_bytes(2 * max_bn * 128) {}
+
+  // One thread, before __syncthreads.
+  __device__ void init() const {
+    for (int i = 0; i < kConsumers * kAStages; ++i) {
+      mbar_init(&a_full[i], 1);
+      mbar_init(&a_empty[i], 4);  // each warp of the consumer, after its last ldmatrix
+    }
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&b_full[i], 1);
+      mbar_init(&b_empty[i], 4 * kConsumers);  // each consumer warp, after its wgmma retired
+    }
+    mbar_init_fence();
+  }
+
+  // Producer (one thread): one group's B pair into the next ring slot.
+  template <int BN, class LoadB>
+  __device__ void produce_b(Ring& b, const F32Group& grp, LoadB&& load_b) const {
+    mbar_wait(&b_empty[b.slot], b.phase ^ 1);
+    mbar_expect_tx(&b_full[b.slot], 2 * BN * 128);
+    load_b(ring + b.slot * slot_bytes, &b_full[b.slot], grp);
+    b.next(stages);
+  }
+
+  // Producer (one thread): the TMA loads of groups [g0, g1) for both
+  // consumers, but the B pairs of the first `skip` groups (already issued
+  // ahead, as they do not depend on the boxes' data). load_box(w, dst, bar,
+  // group) issues consumer w's halo box, load_b(dst, bar, group) the B pair.
+  template <int BN, class LoadBox, class LoadB>
+  __device__ void produce(Ring& a, Ring& b, int g0, int g1, int g3, int skip,
+                          LoadBox&& load_box, LoadB&& load_b) const {
+    for (int g = g0; g < g1; ++g) {
+      const F32Group grp(g, g0, g1, g3);
+      if (grp.first) {
+        for (int w = 0; w < kConsumers; ++w) {
+          const int i = w * kAStages + a.slot;
+          mbar_wait(&a_empty[i], a.phase ^ 1);
+          mbar_expect_tx(&a_full[i], kBoxBytes);
+          load_box(w, boxes + i * kBoxSlot, &a_full[i], grp);
+        }
+        a.next(kAStages);
+      }
+      if (g - g0 >= skip) produce_b<BN>(b, grp, load_b);
+    }
+  }
+
+  // Consumer warpgroup wg: acc = its patch's sum over groups [g0, g1).
+  // on_box(box, group) runs on each landed box, by the warpgroup's 128
+  // threads, before any gather from it (a GBlock's conv1 affine); it returns
+  // whether it wrote the box.
+  template <int BN, class OnBox>
+  __device__ void consume(float (&acc)[BN / 2], Ring& a, Ring& b, Ring& freed, int wg,
+                          const ALane& al, int lane, int g0, int g1, int g3,
+                          OnBox&& on_box) const {
+    const uint32_t boxes_u = smem_u32(boxes), ring_u = smem_u32(ring);
+    auto gather = [&](int k, uint32_t(&fr)[4][4]) {
+      const F32Group grp(g0 + k, g0, g1, g3);
+      const int i = wg * kAStages + a.slot;
+      if (grp.first) {
+        mbar_wait(&a_full[i], a.phase);
+        if (on_box(boxes + i * kBoxSlot, grp)) {
+          fence_proxy_async_shared();  // before the slot's next TMA fill
+          named_barrier(1 + wg, 128);  // the whole box is done before any gather
+        }
+      }
+      mbar_wait(&b_full[b.slot], b.phase);
+      load_a(fr, boxes_u + i * kBoxSlot, al, grp.tap);  // f32: 4 k8 steps
+      if (grp.last) {  // its last gather: the box is free
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&a_empty[i]);
+        a.next(kAStages);
+      }
+      const uint32_t pair = ring_u + b.slot * slot_bytes;
+      b.next(stages);
+      return pair;
+    };
+    auto retired = [&](int) {  // B pairs retire in ring order
+      if (lane == 0) mbar_arrive(&b_empty[freed.slot]);
+      freed.next(stages);
+    };
+    run_groups_tf32<BN>(acc, g1 - g0, gather, retired);
+  }
+};
+
+// Bytes of a conv block's shared memory before its B ring: alignment slack,
+// barriers, `extra` bytes of constants, the boxes.
+inline int conv_fixed_bytes(int extra) {
+  return 2048 + extra + kConsumers * kAStages * kBoxSlot;
+}
+
+// B ring depth for stages of `stage` bytes after `fixed`, or 0 when two do not fit.
+inline int ring_stages(int fixed, int stage) {
+  int s = (kSmemLimit - fixed) / stage;
+  s = s < kMaxBStages ? s : kMaxBStages;
+  return s >= 2 ? s : 0;
+}
+
+// NHWC activation (bf16: C % 8 == 0; f32: C % 4 == 0) as a TMA map with the
+// 10x10 halo box of one chunk.
+inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int n,
+                            int h, int w, int c) {
+  const uint64_t e = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const uint64_t dims[4] = {(uint64_t)c, (uint64_t)w, (uint64_t)h, (uint64_t)n};
-  const uint64_t strides[3] = {2ull * c, 2ull * c * w, 2ull * c * w * h};
-  const uint32_t box[4] = {kChunk, kHalo, kHalo, 1};
-  return bf16_tensor_map(map, ptr, 4, dims, strides, box);
+  const uint64_t strides[3] = {e * c, e * c * w, e * c * w * h};
+  const uint32_t box[4] = {(uint32_t)(128 / e), kHalo, kHalo, 1};
+  return tensor_map(map, type, ptr, 4, dims, strides, box);
+}
+
+// (T, N, H, W, C) states, one step's halo box at a time (the rollouts' out).
+inline cudaError_t step_halo_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                                 int n, int h, int w, int c, int t) {
+  const uint64_t e = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const uint64_t dims[5] = {(uint64_t)c, (uint64_t)w, (uint64_t)h, (uint64_t)n, (uint64_t)t};
+  const uint64_t strides[4] = {e * c, e * c * w, e * c * w * h, e * c * w * h * n};
+  const uint32_t box[5] = {(uint32_t)(128 / e), kHalo, kHalo, 1, 1};
+  return tensor_map(map, type, ptr, 5, dims, strides, box);
 }
 
 // OHWI bf16 weights (nout, taps, cin) as a TMA map with boxes of `rows` outputs x 64 channels.
@@ -135,7 +350,17 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, int nout, int t
   const uint64_t dims[3] = {(uint64_t)cin, (uint64_t)taps, (uint64_t)nout};
   const uint64_t strides[2] = {2ull * cin, 2ull * cin * taps};
   const uint32_t box[3] = {kChunk, 1, (uint32_t)rows};
-  return bf16_tensor_map(map, ptr, 3, dims, strides, box);
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 3, dims, strides, box);
+}
+
+// Split OHWI f32 weights (2, nout, taps, cin), [hi | lo], as a TMA map whose
+// box is one B pair: `rows` outputs x 32 channels of one tap, hi then lo.
+inline cudaError_t weight_pair_map(CUtensorMap* map, const void* ptr, int nout, int taps,
+                                   int cin, int rows) {
+  const uint64_t dims[4] = {(uint64_t)cin, (uint64_t)taps, (uint64_t)nout, 2};
+  const uint64_t strides[3] = {4ull * cin, 4ull * cin * taps, 4ull * cin * taps * nout};
+  const uint32_t box[4] = {kChunkF32, 1, (uint32_t)rows, 2};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 4, dims, strides, box);
 }
 
 }  // namespace dgmr

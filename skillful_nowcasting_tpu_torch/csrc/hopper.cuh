@@ -1,24 +1,30 @@
-// Hopper (sm_90a) building blocks of the port's bf16 kernels, in raw PTX:
-// mbarriers, TMA tiled loads, wgmma with the A operand in registers,
-// ldmatrix, setmaxnreg and proxy fences; and, on the host, tensor maps built
-// with cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so
-// the library links against the CUDA runtime alone (no -lcuda).
+// Hopper (sm_90a) building blocks of the port's kernels, in raw PTX:
+// mbarriers, TMA tiled loads, wgmma with the A operand in registers (bf16
+// k16 and tf32 k8 shapes), ldmatrix, setmaxnreg and proxy fences, the 3xTF32
+// operand split; and, on the host, tensor maps built with
+// cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, so the
+// library links against the CUDA runtime alone (no -lcuda).
 //
 // Conventions of the kernels built on this header (gblock_fused.cu,
 // gru_rollout.cu):
-// - Every operand tile is bf16 with 64 channels (128 bytes) along its
-//   innermost axis, loaded by TMA with the 128-byte swizzle: row r of a tile
-//   is 128 bytes at offset 128 r, and its 16-byte chunk j lies at chunk
+// - Every operand tile has 128 bytes along its innermost axis (64 bf16 or
+//   32 f32 channels), loaded by TMA with the 128-byte swizzle: row r of a
+//   tile is 128 bytes at offset 128 r, and its 16-byte chunk j lies at chunk
 //   j ^ (r % 8). Tiles start on 1024-byte boundaries, so r % 8 is the
 //   address's own bits [7, 10).
 // - B (the weights) is K-major: the wrapper hands the kernels OHWI kernels,
-//   read as (Nout, 9, Cin), and a tile is Nout rows of 64 input channels of
-//   one tap, the canonical K-major SW128 layout of wgmma (8-row atoms of
-//   1024 bytes; the descriptor's stride byte offset is 1024).
+//   read as (Nout, 9, Cin), and a tile is Nout rows of one chunk of input
+//   channels of one tap, the canonical K-major SW128 layout of wgmma (8-row
+//   atoms of 1024 bytes; the descriptor's stride byte offset is 1024). A
+//   k16 bf16 step and a k8 tf32 step both take 32 bytes of each row. tf32
+//   wgmma takes B only K-major.
 // - A (the activations) comes from registers: ldmatrix gathers each 3x3
 //   tap's shifted rows out of an NHWC halo box, which a K-major shared-memory
 //   descriptor could not address (the rows of a shifted tap are not evenly
-//   strided once the box is wider than the tile).
+//   strided once the box is wider than the tile). An 8x8 b16 matrix is eight
+//   rows of four 32-bit values, so the same .x4 ldmatrix hands each lane its
+//   tf32 A fragment of a k8 step: (row g, k t), (g + 8, t), (g, t + 4),
+//   (g + 8, t + 4), g = lane / 4, t = lane % 4.
 
 #pragma once
 
@@ -315,6 +321,93 @@ struct Wgmma<256> {
 };
 
 
+// The same for one m64nNk8 tf32 step: A a 64x8 tf32 tile in registers (each
+// warp 16 rows, in mma.sync's m16n8k8 tf32 A layout), B a K-major tile of
+// tf32 (f32 whose low 13 mantissa bits are ignored).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<48> {
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+
 // --- ldmatrix, setmaxnreg, bf16 ---------------------------------------------
 
 // Four 8x8 bf16 matrices; lane l supplies the address of row l % 8 of matrix l / 8.
@@ -341,13 +434,41 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 3xTF32 operand split, x ~= hi + lo, with no conversion instructions (cvt
+// runs at a quarter of the FP32 rate): hi is x with its low 13 mantissa bits
+// cleared (TF32, truncated), x - hi is exact in f32, and lo is that remainder
+// truncated to TF32 the same way. Dropping lo's own tail and lo * lo leaves
+// ~2^-20 of each product.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Streaming multiprocessors of the current device, or 0 on error.
+inline int sm_count() {
+  int dev = 0;
+  int n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return n;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // --- host: tensor maps ------------------------------------------------------
 
-// A bf16 tensor map, 128-byte swizzle, zero fill out of bounds. dims and box
-// are innermost first; strides (rank - 1 of them) in bytes, multiples of 16.
-inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* ptr, int rank,
-                                   const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box) {
+// A bf16 or f32 tensor map, 128-byte swizzle, zero fill out of bounds. dims
+// and box are innermost first; strides (rank - 1 of them) in bytes,
+// multiples of 16.
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                              int rank, const uint64_t* dims, const uint64_t* strides,
+                              const uint32_t* box) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -363,7 +484,7 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* ptr, int rank,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+  const CUresult res = encode(map, type, rank, const_cast<void*>(ptr),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

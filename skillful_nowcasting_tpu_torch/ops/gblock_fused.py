@@ -10,15 +10,17 @@ with BN folded into the affines and spectral norm into the kernels. The public
 function keeps the JAX layouts (NHWC activations, HWIO kernels) and is the
 ``torch.library`` custom op ``dgmr::gblock_fused``, so ``torch.export``
 records it as one node. On a CUDA tensor it launches the two tensor-core
-kernels of ``csrc/gblock_fused.cu`` for its dtype (float32: 3xTF32
-``mma.sync``; bfloat16: ``wgmma`` fed by TMA); on a CPU tensor the plain
-version runs.
+kernels of ``csrc/gblock_fused.cu`` for its dtype (``wgmma`` fed by TMA:
+3xTF32 for float32, bf16 for bfloat16); on a CPU tensor the plain version
+runs. Both wrappers pad the channels for TMA's 16-byte strides and hand the
+weights over in OHWI (output channels as K-major rows); the float32 one
+also splits them into TF32 halves.
 
 bf16 follows the TPU kernel given bf16 operands: ``x`` and the kernels are
 bf16, the affines f32; ``relu(a1 * x + b1)`` and ``mid`` are computed in f32
 and rounded to bf16 as they enter a conv; sums are f32 and the output is
 rounded to bf16 once. The bf16 kernels store ``mid`` already rounded (the
-same bits) and take the weights in OHWI (output channels as K-major rows).
+same bits).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .tma import aligned16, ohwi
+from .tma import aligned16, ohwi, split_tf32
 
 
 def fold_gblock_variables(block, dtype=None):
@@ -140,37 +142,19 @@ def _launch(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
     if n * h * w * max(cin, cout) >= 2**31:
         raise ValueError("gblock_fused: x is too large for 32-bit indexing")
 
-    if x.dtype == torch.bfloat16:
-        return _launch_bf16(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
-    mid = torch.empty((n, h, w, cin), device=x.device, dtype=torch.float32)
-    out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        _build.call(
-            "gblock_conv1_f32",
-            _ptr(x), _ptr(k1), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
-            n, h, w, cin, stream,
-        )
-        _count(x.dtype)
-        _build.call(
-            "gblock_conv2_f32",
-            _ptr(mid), _ptr(x), _ptr(k2), _ptr(ksc), _ptr(b_out), _ptr(out), int(use_sc_conv),
-            n, h, w, cin, cout, stream,
-        )
-        _count(x.dtype)
-    return out
+    return _launch_kernels(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv)
 
 
-def pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out):
-    """The GBlock's operands with Cin and Cout zero-padded to multiples of 8.
+def pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out, multiple=8):
+    """The GBlock's operands with Cin and Cout zero-padded to multiples of ``multiple``.
 
-    TMA, which feeds the bf16 kernels, needs 16-byte strides. Zero weights
-    and zero ``a1``/``b1`` make every padded channel of ``mid`` and of the
-    output exactly 0 and add exact zeros to every sum, so the first Cout
-    channels of the padded block are the block.
+    TMA, which feeds the kernels, needs 16-byte strides: 8 bf16 or 4 float32
+    channels. Zero weights and zero ``a1``/``b1`` make every padded channel
+    of ``mid`` and of the output exactly 0 and add exact zeros to every sum,
+    so the first Cout channels of the padded block are the block.
     """
     cin, cout = x.shape[-1], k2.shape[-1]
-    pi, po = -(-cin // 8) * 8 - cin, -(-cout // 8) * 8 - cout
+    pi, po = -(-cin // multiple) * multiple - cin, -(-cout // multiple) * multiple - cout
     if pi or po:
         x = F.pad(x, (0, pi))
         k1 = F.pad(k1, (0, pi, 0, pi))
@@ -181,30 +165,38 @@ def pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out):
     return x, k1, k2, ksc, a1, b1, a2, b2, b_out
 
 
-def _launch_bf16(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
-    """The two bf16 kernels (wgmma + TMA) on :func:`pad_channels`' operands, weights in OHWI.
+def _launch_kernels(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch.Tensor:
+    """The two kernels for ``x.dtype`` (wgmma + TMA) on :func:`pad_channels`' operands.
 
-    ``mid`` is bf16: conv1 stores it as conv2 would round it on entry.
+    The kernels go in OHWI; float32 ones split once a call into their TF32
+    halves (:func:`~skillful_nowcasting_tpu_torch.ops.tma.split_tf32`) for
+    the 3xTF32 products. ``mid`` has ``x``'s dtype: the bf16 conv1 stores it
+    as conv2 would round it on entry.
     """
+    f32 = x.dtype == torch.float32
+    prep = (lambda k: split_tf32(ohwi(k))) if f32 else ohwi  # noqa: E731
+    suffix = "f32" if f32 else "bf16"
     cout = k2.shape[-1]
-    x, k1, k2, ksc, a1, b1, a2, b2, b_out = pad_channels(x, k1, k2, ksc, a1, b1, a2, b2, b_out)
+    x, k1, k2, ksc, a1, b1, a2, b2, b_out = pad_channels(
+        x, k1, k2, ksc, a1, b1, a2, b2, b_out, multiple=4 if f32 else 8
+    )
     n, h, w, ci = x.shape
     co = k2.shape[-1]
-    k1t, k2t = ohwi(k1), ohwi(k2)
-    ksct = ohwi(ksc) if use_sc_conv else k2t  # not read with the identity shortcut
+    k1t, k2t = prep(k1), prep(k2)
+    ksct = prep(ksc) if use_sc_conv else k2t  # not read with the identity shortcut
     x = aligned16(x)
-    mid = torch.empty((n, h, w, ci), device=x.device, dtype=torch.bfloat16)
-    out = torch.empty((n, h, w, co), device=x.device, dtype=torch.bfloat16)
+    mid = torch.empty((n, h, w, ci), device=x.device, dtype=x.dtype)
+    out = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         _build.call(
-            "gblock_conv1_bf16",
+            f"gblock_conv1_{suffix}",
             _ptr(x), _ptr(k1t), _ptr(a1), _ptr(b1), _ptr(a2), _ptr(b2), _ptr(mid),
             n, h, w, ci, stream,
         )
         _count(x.dtype)
         _build.call(
-            "gblock_conv2_bf16",
+            f"gblock_conv2_{suffix}",
             _ptr(mid), _ptr(x), _ptr(k2t), _ptr(ksct), _ptr(b_out), _ptr(out),
             int(use_sc_conv), n, h, w, ci, co, stream,
         )

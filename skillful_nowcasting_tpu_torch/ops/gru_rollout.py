@@ -13,11 +13,13 @@ Each step computes
 and all ``T`` states are returned. The rollout is the ``torch.library``
 custom op ``dgmr::convgru_rollout``, so ``torch.export`` records it as one
 node. On a CUDA tensor one persistent cooperative launch of
-``csrc/gru_rollout.cu`` runs every step: the f32 kernel (3xTF32
-``mma.sync``, split-K) for float32 operands, the bf16 kernel
-(weight-stationary ``wgmma`` fed by TMA) for bfloat16 ones (see the notes
-there for the designs and what bounds them); on a CPU tensor the plain
-version runs.
+``csrc/gru_rollout.cu`` runs every step, on ``wgmma`` fed by TMA: the f32
+kernel (3xTF32, split-K, the weights streamed from L2) for float32
+operands, the bf16 kernel (weight-stationary) for bfloat16 ones (see the
+notes there for the designs and what bounds them); on a CPU tensor the
+plain version runs. The wrapper pads the channels for TMA's 16-byte strides
+and hands the kernels over in OHWI (output channels as K-major rows),
+float32 ones split into TF32 halves.
 
 bf16 follows the TPU kernel given bf16 operands: ``h`` and ``r * h`` are
 f32 and are rounded to bf16 as they enter a conv, sums are f32, and each
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .tma import aligned16, ohwi
+from .tma import aligned16, ohwi, split_tf32
 
 
 def _static(gx_seq: torch.Tensor, n_steps: Optional[int]) -> tuple[int, bool]:
@@ -127,40 +129,25 @@ def _launch(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
     if gx_seq.numel() >= 2**31:
         raise ValueError("convgru_rollout: gx_seq is too large for 32-bit indexing")
 
-    if t > 0 and dtype == torch.bfloat16:
-        return _launch_bf16(gx_seq, h0, k_ru, k_c, bias, t)
-    out = torch.empty((t, b, h, w, c), device=gx_seq.device, dtype=dtype)
     if t == 0:
-        return out
-    with torch.cuda.device(gx_seq.device):
-        floats = ctypes.c_longlong()
-        _build.call("gru_rollout_workspace_f32", b, h, w, c, ctypes.byref(floats))
-        rh = torch.empty((b, h, w, c), device=gx_seq.device, dtype=torch.float32)
-        u = torch.empty_like(rh)
-        part = torch.empty(floats.value, device=gx_seq.device, dtype=torch.float32)
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        _build.call(
-            "gru_rollout_f32",
-            _ptr(gx_seq), _ptr(h0), _ptr(k_ru), _ptr(k_c), _ptr(bias), _ptr(out),
-            _ptr(rh), _ptr(u), _ptr(part),
-            b, h, w, c, t, gx_seq.shape[0], stream,
-        )
-        convgru_rollout.launches += 1
-    return out
+        return torch.empty((0, b, h, w, c), device=gx_seq.device, dtype=dtype)
+    return _launch_kernel(gx_seq, h0, k_ru, k_c, bias, t)
 
 
-def pad_channels(gx_seq, h0, k_ru, k_c, bias):
-    """The rollout's operands with C zero-padded to a multiple of 8, and that C.
+def pad_channels(gx_seq, h0, k_ru, k_c, bias, multiple=8):
+    """The rollout's operands with C zero-padded to a multiple of ``multiple``, and that C.
 
-    TMA, which feeds the bf16 kernel, needs 16-byte strides. gx and bias are
-    [read C | update C | candidate C] and ``k_ru``'s outputs [read C | update
-    C], so each gate block pads to C8 on its own, as do the input channels
-    of both kernels and ``h0``. A padded channel then stays exactly 0
-    (0.5 * 0 + 0.5 * relu(0)) and adds exact zeros to every sum, so the first
-    C channels of the padded rollout are the rollout.
+    TMA, which feeds the kernels, needs 16-byte strides (8 bf16 channels);
+    the float32 kernel takes whole blocks of 16 channels
+    (:func:`ohwi_gates_interleaved`). gx and bias are [read C | update C | candidate C] and
+    ``k_ru``'s outputs [read C | update C], so each gate block pads on its
+    own, as do the input channels of both kernels and ``h0``. A padded
+    channel then stays exactly 0 (0.5 * 0 + 0.5 * relu(0)) and adds exact
+    zeros to every sum, so the first C channels of the padded rollout are
+    the rollout.
     """
     c = h0.shape[-1]
-    pad = -(-c // 8) * 8 - c
+    pad = -(-c // multiple) * multiple - c
     if pad:
         gx_seq = F.pad(gx_seq.unflatten(-1, (3, c)), (0, pad)).flatten(-2)
         bias = F.pad(bias.view(3, c), (0, pad)).flatten()
@@ -170,30 +157,65 @@ def pad_channels(gx_seq, h0, k_ru, k_c, bias):
     return gx_seq, h0, k_ru, k_c, bias, c + pad
 
 
-def _launch_bf16(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
-    """The bf16 kernel (weight-stationary, wgmma + TMA) on :func:`pad_channels`' operands.
+def ohwi_gates_interleaved(k_ru: torch.Tensor) -> torch.Tensor:
+    """:func:`~skillful_nowcasting_tpu_torch.ops.tma.ohwi` of ``k_ru`` with its output rows
+    ``[read C | update C]`` reordered as blocks of 16 read then 16 update rows (one copy).
 
-    The kernels go in OHWI (output channels as K-major rows).
+    The float32 kernel's output column of gate g (0 read, 1 update) and channel
+    ch is then ``(ch // 16) * 32 + g * 16 + ch % 16`` (``gru_rollout.cu:gate_column``),
+    so one thread of its epilogue holds both gates of a channel. C % 16 == 0.
     """
+    c = k_ru.shape[-1] // 2
+    return k_ru.reshape(-1, 2, c // 16, 16).permute(2, 1, 3, 0).reshape(2 * c, -1)
+
+
+def _launch_kernel(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
+    """The kernel for the operands' dtype on :func:`pad_channels`' operands.
+
+    The kernels go in OHWI. float32 ones split into their TF32 halves
+    (:func:`~skillful_nowcasting_tpu_torch.ops.tma.split_tf32`) for the
+    3xTF32 products, ``k_ru``'s gates interleaved (:func:`ohwi_gates_interleaved`,
+    so C pads to a multiple of 16). Scratch: float32 ``r * h`` and ``u`` and
+    the split-K partial sums; bf16 ``h`` in float32 for all steps, ``u`` and
+    a bf16 ``r * h``.
+    """
+    f32 = gx_seq.dtype == torch.float32
     b, h, w, c = h0.shape
-    gx_seq, h0, k_ru, k_c, bias, c8 = pad_channels(gx_seq, h0, k_ru, k_c, bias)
-    k_ru_t, k_c_t = ohwi(k_ru), ohwi(k_c)
+    gx_seq, h0, k_ru, k_c, bias, cp = pad_channels(
+        gx_seq, h0, k_ru, k_c, bias, multiple=16 if f32 else 8
+    )
+    if f32:
+        k_ru_t, k_c_t = split_tf32(ohwi_gates_interleaved(k_ru)), split_tf32(ohwi(k_c))
+    else:
+        k_ru_t, k_c_t = ohwi(k_ru), ohwi(k_c)
     gx_seq, h0, bias = aligned16(gx_seq), aligned16(h0), aligned16(bias)
     dev = gx_seq.device
-    out = torch.empty((t, b, h, w, c8), device=dev, dtype=torch.bfloat16)
-    hbuf = torch.empty((b, h, w, c8), device=dev, dtype=torch.float32)  # h, f32, all T steps
-    u = torch.empty_like(hbuf)
-    rh = torch.empty((b, h, w, c8), device=dev, dtype=torch.bfloat16)
+    out = torch.empty((t, b, h, w, cp), device=dev, dtype=gx_seq.dtype)
+    state = torch.empty((b, h, w, cp), device=dev, dtype=torch.float32)
+    u = torch.empty_like(state)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        _build.call(
-            "gru_rollout_bf16",
-            _ptr(gx_seq), _ptr(h0), _ptr(k_ru_t), _ptr(k_c_t), _ptr(bias), _ptr(out),
-            _ptr(hbuf), _ptr(rh), _ptr(u),
-            b, h, w, c8, t, gx_seq.shape[0], stream,
-        )
-        convgru_rollout.launches_bf16 += 1
-    return out if c8 == c else out[..., :c].contiguous()
+        if f32:
+            floats = ctypes.c_longlong()
+            _build.call("gru_rollout_workspace_f32", b, h, w, cp, ctypes.byref(floats))
+            part = torch.empty(floats.value, device=dev, dtype=torch.float32)
+            _build.call(
+                "gru_rollout_f32",
+                _ptr(gx_seq), _ptr(h0), _ptr(k_ru_t), _ptr(k_c_t), _ptr(bias), _ptr(out),
+                _ptr(state), _ptr(u), _ptr(part),  # state: r * h
+                b, h, w, cp, t, gx_seq.shape[0], stream,
+            )
+            convgru_rollout.launches += 1
+        else:
+            rh = torch.empty((b, h, w, cp), device=dev, dtype=torch.bfloat16)
+            _build.call(
+                "gru_rollout_bf16",
+                _ptr(gx_seq), _ptr(h0), _ptr(k_ru_t), _ptr(k_c_t), _ptr(bias), _ptr(out),
+                _ptr(state), _ptr(rh), _ptr(u),  # state: h in f32 for all steps
+                b, h, w, cp, t, gx_seq.shape[0], stream,
+            )
+            convgru_rollout.launches_bf16 += 1
+    return out if cp == c else out[..., :c].contiguous()
 
 
 @torch.library.custom_op("dgmr::convgru_rollout", mutates_args=())

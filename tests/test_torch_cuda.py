@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Both kernels in f32 and in bf16 (tolerance: 2^-7 of the largest plain
-output, one bf16 ulp there), a tiny serving artifact on the card, and the
-losses and ``CoordConv`` on the card against the same on the CPU.
+Both kernels in f32 (3xTF32 wgmma + TMA; tolerance 1e-5 at small widths,
+1e-4 at the main path's) and in bf16 (2^-7 of the largest plain output,
+one bf16 ulp there), a tiny serving artifact on the card, and the losses and
+``CoordConv`` on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips where CUDA is absent. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -59,9 +60,10 @@ def gru_inputs(rng, t_in, b, hw, c, dev):
     return [randn(rng, *shape, scale=sc).to(dev) for shape, sc in zip(shapes, scales)]
 
 
-# Ragged channel counts (masked scalar loads), a multiple of 4 (16-byte
-# cp.async), and the Sampler's 8x8 / C=384 level at B=1: the fewest pixels,
-# so the most split-K. Tolerance 1e-5, and 1e-4 (the main path's) at full width.
+# Ragged channel counts (the wrapper pads them to multiples of 16), a
+# multiple of 16 that is no multiple of 32 (a half-empty last chunk), and the
+# Sampler's 8x8 / C=384 level at B=1: the fewest pixels, so the most split-K.
+# Tolerance 1e-5, and 1e-4 (the main path's) at full width.
 @pytest.mark.parametrize(
     "t_in,b,hw,c,tol",
     [(3, 2, 5, 6, 1e-5), (1, 2, 8, 70, 1e-5), (3, 3, 9, 40, 1e-5), (3, 2, 12, 48, 1e-5),
@@ -168,6 +170,99 @@ def test_kernel_wrappers_refuse_bad_input(dev):
         h = bf[1].flatten()[1:]
         _build.call("gru_rollout_bf16", ptr(bf[0]), ptr(h), *[ptr(bf[2])] * 4,
                     *[ptr(gb[4])] * 3, 1, 8, 8, 8, 2, 2, stream)
+
+
+# The f32 kernels at the main path's shapes at the request batch (B=2 / N=36): within the
+# 1e-4 bar, and the same bits on a second call.
+@pytest.mark.parametrize("t_in,hw,c", [(1, 8, 384), (3, 16, 192), (3, 32, 96), (3, 64, 48)])
+def test_convgru_rollout_f32_kernel_at_the_request_batch(dev, t_in, hw, c):
+    args = gru_inputs(np.random.default_rng(13), t_in, 2, hw, c, dev)
+    got = convgru_rollout(*args, n_steps=3)
+    want = convgru_rollout_reference(*args, n_steps=3)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, convgru_rollout(*args, n_steps=3))
+
+
+@pytest.mark.parametrize(
+    "hw,cin,cout", [(8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96), (16, 384, 192)]
+)
+def test_gblock_fused_f32_kernel_at_the_request_batch(dev, hw, cin, cout):
+    args = gblock_inputs(np.random.default_rng(14), 36, hw, hw, cin, cout, dev)
+    got = gblock_fused(*args)
+    want = gblock_fused_reference(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, gblock_fused(*args))
+
+
+# Ragged windows of the H-sharded forward at 512^2 on two space ranks (chip_smoke.py phase 19a):
+# each rank's window of a level (its stripe and the rows the kernel reaches across), rows past
+# the window's H masked; the window's stripe rows equal the same rows of the kernel on the
+# whole level, bit for bit, for the top window and the bottom one.
+@pytest.mark.parametrize("rows,width,window,c", [(16, 16, 10, 768), (64, 64, 34, 192)])
+def test_gblock_fused_f32_kernel_on_ragged_windows(dev, rows, width, window, c):
+    whole = gblock_inputs(np.random.default_rng(15), 18, rows, width, c, c, dev)
+    full = gblock_fused(*whole)
+    stripe = rows // 2
+    for lo, keep in ((0, 0), (rows - window, window - stripe)):
+        args = [whole[0][:, lo:lo + window].contiguous(), *whole[1:]]
+        got = gblock_fused(*args)
+        assert (got - gblock_fused_reference(*args)).abs().max().item() <= 1e-4
+        assert torch.equal(got[:, keep:keep + stripe], full[:, lo + keep:lo + keep + stripe])
+
+
+@pytest.mark.parametrize("rows,width,window,c", [(128, 128, 101, 48), (32, 32, 32, 192)])
+def test_convgru_rollout_f32_kernel_on_ragged_windows(dev, rows, width, window, c):
+    rng = np.random.default_rng(16)
+    whole = [a.to(dev) for a in (randn(rng, 3, 1, rows, width, 3 * c), randn(rng, 1, rows, width, c),
+                                 randn(rng, 3, 3, c, 2 * c, scale=(9 * c) ** -0.5),
+                                 randn(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+                                 randn(rng, 3 * c, scale=0.1))]
+    full = convgru_rollout(*whole, n_steps=3)
+    stripe = rows // 2
+    for lo, keep in ((0, 0), (rows - window, window - stripe)):
+        args = [whole[0][:, :, lo:lo + window].contiguous(),
+                whole[1][:, lo:lo + window].contiguous(), *whole[2:]]
+        got = convgru_rollout(*args, n_steps=3)
+        assert (got - convgru_rollout_reference(*args, n_steps=3)).abs().max().item() <= 1e-4
+        assert torch.equal(got[:, :, keep:keep + stripe], full[:, :, lo + keep:lo + keep + stripe])
+
+
+def test_f32_kernels_pad_odd_channel_counts(dev):
+    """10 channels pad to 16 (the rollout) or 12 (the GBlock; a 6-channel output to 8) and
+    slice back."""
+    gru = gru_inputs(np.random.default_rng(17), 3, 2, 6, 10, dev)
+    got = convgru_rollout(*gru, n_steps=3)
+    assert got.shape == (3, 2, 6, 6, 10) and got.is_contiguous()
+    assert (got - convgru_rollout_reference(*gru, n_steps=3)).abs().max().item() <= 1e-5
+    gb = gblock_inputs(np.random.default_rng(18), 2, 5, 7, 10, 6, dev)
+    got = gblock_fused(*gb)
+    assert got.shape == (2, 5, 7, 6) and got.is_contiguous()
+    assert (got - gblock_fused_reference(*gb)).abs().max().item() <= 1e-5
+
+
+def test_f32_entry_points_refuse_what_tma_cannot_load(dev):
+    """The f32 kernels' C entry points refuse channels off 16 bytes and misaligned pointers."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    gb = gblock_inputs(np.random.default_rng(19), 2, 8, 8, 16, 16, dev)
+    x = gb[0]
+    with pytest.raises(RuntimeError, match="gblock_conv1_f32: CUDA call failed"):
+        # 6 channels: 24-byte strides (the wrapper pads to 8)
+        _build.call("gblock_conv1_f32", *[ptr(x)] * 2, *[ptr(gb[4])] * 4, ptr(x),
+                    2, 8, 8, 6, stream)
+    with pytest.raises(RuntimeError, match="gblock_conv2_f32: CUDA call failed"):
+        _build.call("gblock_conv2_f32", ptr(x.flatten()[1:]), *[ptr(x)] * 3, ptr(gb[8]),
+                    ptr(x), 0, 2, 8, 8, 16, 16, stream)
+    gru = gru_inputs(np.random.default_rng(19), 2, 1, 8, 16, dev)
+    with pytest.raises(RuntimeError, match="gru_rollout_f32: CUDA call failed"):
+        h = gru[1].flatten()[1:]  # a pointer off the 16-byte alignment TMA needs
+        _build.call("gru_rollout_f32", ptr(gru[0]), ptr(h), *[ptr(gru[2])] * 3, ptr(gru[0]),
+                    *[ptr(gru[1])] * 3, 1, 8, 8, 16, 2, 2, stream)
+    with pytest.raises(RuntimeError, match="gru_rollout_f32: CUDA call failed"):
+        # 8 channels: the kernel's gate epilogue takes whole blocks of 16 (the wrapper pads)
+        _build.call("gru_rollout_f32", *[ptr(gru[0])] * 9, 1, 8, 8, 8, 2, 2, stream)
 
 
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32)

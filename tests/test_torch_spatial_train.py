@@ -30,6 +30,11 @@ only never wait on the JAX train-step compiles. The layers are held against the 
 ones in float64 to 1e-12, a ``Trainer`` on the space mesh against one on a
 mesh of one, and the draw-sharing rule with differently advanced global
 RNGs. The refusals need no processes.
+
+Under xdist the three JAX references (train, R1 + watch, eval) compile on
+one worker that waits for the ranks, while they run (``_references_meanwhile``);
+the worker that runs the ranks does nothing else, so the workers that wait
+on the ranks alone are free as soon as the ranks are.
 """
 
 import os
@@ -44,6 +49,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock, Timeout
 
 from skillful_nowcasting_tpu import training as jtraining
 from skillful_nowcasting_tpu_torch import DGMR, parallel, training
@@ -210,23 +216,52 @@ def ranks(setup, tmp_path_factory):
 
         return finish
 
-    return run_once(tmp_path_factory, "test_torch_spatial_train_ranks", start)[0]
+    holder = []  # start() runs on the worker that runs the ranks; it does nothing else meanwhile
+
+    def meanwhile():
+        if not holder:
+            _references_meanwhile(setup, tmp_path_factory)
+
+    return run_once(tmp_path_factory, "test_torch_spatial_train_ranks",
+                    lambda: holder.append(True) or start(), meanwhile)[0]
+
+
+def _jax_references(setup, tmp_path_factory) -> dict:
+    """The JAX train step, its R1 + watch variant (both shared with the other port tests) and the
+    eval step, computed once per test run, all three compiling at once on threads."""
+    refs = {}
+
+    def eval_step():
+        refs["eval"] = run_once(tmp_path_factory, "test_torch_spatial_train_jax_eval",
+                                _jax_eval_start(setup))[0]
+
+    def r1_step():
+        refs["r1"] = run_once(tmp_path_factory, "test_torch_train_extras_jax_r1_step",
+                              jax_r1_step_start(setup), eval_step)[0]
+
+    refs["plain"] = run_once(tmp_path_factory, "test_torch_train_jax_step",
+                             jax_train_step_start(setup), r1_step)[0]
+    return refs
+
+
+def _references_meanwhile(setup, tmp_path_factory) -> None:
+    """While the ranks run: the JAX references, on the first worker to ask; the others go on."""
+    lock = FileLock(str(_shared_dir(tmp_path_factory) / "test_torch_train_jax_step.npz") + ".lock")
+    try:
+        lock.acquire(timeout=0)
+    except Timeout:
+        return
+    lock.release()
+    _jax_references(setup, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
 def against_jax(ranks, setup, tmp_path_factory):
     """``{mesh: {step: _step_against_jax(...)}}``, computed once per test run from rank 0's trees and
-    the two JAX train steps (both compiled at once, on threads; shared with the other port tests)."""
+    the two JAX train steps (``_jax_references``)."""
 
     def start():
-        refs = {}
-
-        def r1_step():
-            refs["r1"] = run_once(tmp_path_factory, "test_torch_train_extras_jax_r1_step",
-                                  jax_r1_step_start(setup))[0]
-
-        refs["plain"] = run_once(tmp_path_factory, "test_torch_train_jax_step",
-                                 jax_train_step_start(setup), r1_step)[0]
+        refs = _jax_references(setup, tmp_path_factory)
         trees = torch.load(_ranks_dir(tmp_path_factory) / "rank0.pt", weights_only=False)
         trees = jax.tree.map(lambda v: v.numpy() if isinstance(v, torch.Tensor) else v, trees)
 
@@ -253,7 +288,7 @@ def test_sharded_train_steps_leave_every_rank_bit_identical(ranks, mesh):
 
 def test_sharded_eval_step_matches_jax(ranks, setup, tmp_path_factory):
     want = run_once(tmp_path_factory, "test_torch_spatial_train_jax_eval",
-                    _jax_eval_start(setup))[0]
+                    _jax_eval_start(setup))[0]  # mostly computed while the ranks ran
     for r in ranks:
         got = r["quad"]["eval"]["metrics"]
         assert set(got) == set(want)
