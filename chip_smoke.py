@@ -55,7 +55,9 @@ the top kernels by device time) and prints no result line.
 9. Hub round trips at full width: ``save_pretrained`` then
    ``DGMR.from_pretrained`` onto the card; the same weights with old-style
    spectral-norm keys and ``generator.*`` copies; the three stacks saved
-   apart and rejoined by ``compose_generator``. Each fixed-latent nowcast is
+   apart and rejoined by ``compose_generator``; then the same two in the JAX
+   package's native format (``config.json`` + ``flax_model.msgpack``, written
+   by ``hub.pretrained.save_checkpoint``). Each fixed-latent nowcast is
    bit-identical to the source model's; bytes and seconds printed.
 10. A 1184x1184 field through both tilers (tile 256, overlap 64, 16 tiles a
    forward), one latent: 4 / 8 launches per forward, an interior tile of
@@ -990,14 +992,14 @@ def old_style_keys(sd: dict) -> dict:
 
 
 def hub_round_trips(torch, dev, model, card, counters) -> dict:
-    """Phase 9: save and reload the full-width model three ways; each nowcast bit-identical."""
+    """Phase 9: save and reload the full-width model five ways; each nowcast bit-identical."""
     import shutil
     from pathlib import Path
 
     from skillful_nowcasting_tpu_torch import DGMR, models
     from skillful_nowcasting_tpu_torch.hub import compose_generator
     from skillful_nowcasting_tpu_torch.hub import safetensors as st
-    from skillful_nowcasting_tpu_torch.hub.pretrained import reference_state_dict
+    from skillful_nowcasting_tpu_torch.hub.pretrained import reference_state_dict, save_checkpoint
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_hub"
     shutil.rmtree(root, ignore_errors=True)
@@ -1042,9 +1044,27 @@ def hub_round_trips(torch, dev, model, card, counters) -> dict:
         check("three stacks apart -> compose_generator",
               lambda: compose_generator(*(cls.from_pretrained(str(root / name))
                                           for name, cls in stacks)), nbytes)
+
+        # The JAX package's native format, written by the port (its file is what the JAX
+        # package's BoundModel.save_pretrained writes; tests/test_torch_serialization.py).
+        def write_msgpack(label, parts):
+            t0 = time.perf_counter()
+            nbytes = sum(save_checkpoint(module, str(root / name)) for name, module in parts)
+            print(f"hub msgpack {label}: {nbytes} bytes of flax_model.msgpack written in "
+                  f"{time.perf_counter() - t0:.4f} s from {card}")
+            return nbytes
+
+        nbytes = write_msgpack("DGMR", [("msgpack", model)])
+        check("save_checkpoint (flax_model.msgpack) -> DGMR.from_pretrained",
+              lambda: DGMR.from_pretrained(str(root / "msgpack")), nbytes)
+        nbytes = write_msgpack("three stacks", [(f"msgpack_{name}", getattr(model, name))
+                                                for name, _ in stacks])
+        check("three stacks apart (flax_model.msgpack) -> compose_generator",
+              lambda: compose_generator(*(cls.from_pretrained(str(root / f"msgpack_{name}"))
+                                          for name, cls in stacks)), nbytes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"hub": expect_launches(model, counters, calls, 4, "hub nowcasts (source + 3 loaded)")}
+    return {"hub": expect_launches(model, counters, calls, 6, "hub nowcasts (source + 5 loaded)")}
 
 
 def tiled_field(torch, dev, model, card, counters) -> dict:

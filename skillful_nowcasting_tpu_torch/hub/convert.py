@@ -23,6 +23,11 @@ the port's keys (SURVEY.md quirk Q10, the torch side of
 * ``num_batches_tracked`` is kept (the port's BatchNorms have it);
 * leaves that the JAX converter ignores (no weight, bias, BN statistic,
   ``gamma`` or spectral-norm key) are dropped.
+
+:func:`convert_torch_state_dict` is the other direction, the counterpart of
+``skillful_nowcasting_tpu/hub/convert.py:convert_torch_state_dict``: a state
+dict in any of those dialects becomes a ``{params, batch_stats, spectral}``
+tree, the inverse of :func:`state_dict_from_variables`.
 """
 
 from __future__ import annotations
@@ -85,8 +90,9 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
         mod, leaf = _split(path)
         bn_stats.setdefault(mod, {})[leaf] = value
     for mod, stats in bn_stats.items():
-        out[f"{mod}running_mean"] = np.asarray(stats["mean"], np.float32)
-        out[f"{mod}running_var"] = np.asarray(stats["var"], np.float32)
+        for leaf in ("mean", "var"):  # a missing one is left for the strict load to name
+            if leaf in stats:
+                out[f"{mod}running_{leaf}"] = np.asarray(stats[leaf], np.float32)
         out[f"{mod}num_batches_tracked"] = np.asarray(0, np.int64)
 
     for path, (u, v) in _walk(spectral):
@@ -94,8 +100,20 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> Dict[str, torch.T
         out[f"{mod}parametrizations.weight.0._u"] = np.asarray(u, np.float32)
         out[f"{mod}parametrizations.weight.0._v"] = np.asarray(v, np.float32)
 
-    # np.array copies: torch.from_numpy would alias the caller's buffers.
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    # np.array copies (torch.from_numpy would alias the caller's buffers), in C order, so a
+    # transposed kernel is contiguous on the module it is assigned to.
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def _module_path(mod: str) -> Tuple[str, ...]:
+    """``"intermediate_dblocks.0.conv"`` -> ``("intermediate_dblocks.0", "conv")``."""
+    path = []
+    for part in mod.split(".") if mod else ():
+        if part.isdigit() and path:
+            path[-1] = f"{path[-1]}.{part}"
+        else:
+            path.append(part)
+    return tuple(path)
 
 
 def param_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
@@ -116,13 +134,7 @@ def param_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
             if leaf == "weight":
                 bn = isinstance(model.get_submodule(mod), nn.modules.batchnorm._BatchNorm)
                 leaf = "scale" if bn else "kernel"
-        path = []
-        for part in mod.split(".") if mod else ():
-            if part.isdigit():
-                path[-1] = f"{path[-1]}.{part}"
-            else:
-                path.append(part)
-        out[name] = (*path, leaf)
+        out[name] = (*_module_path(mod), leaf)
     return out
 
 
@@ -180,3 +192,69 @@ def convert_reference_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
         elif leaf in _KNOWN_LEAVES:
             out[key] = value
     return out
+
+
+def _to_jax_layout(w: torch.Tensor) -> torch.Tensor:
+    if w.ndim == 4:  # OIHW -> HWIO
+        return w.permute(2, 3, 1, 0)
+    if w.ndim == 5:  # OIDHW -> DHWIO
+        return w.permute(2, 3, 4, 1, 0)
+    if w.ndim == 2:  # (out, in) -> (in, out)
+        return w.permute(1, 0)
+    if w.ndim == 1:
+        return w
+    raise ValueError(f"unsupported weight ndim: {w.ndim}")
+
+
+def _leaf(w: torch.Tensor):
+    """A numpy copy of ``w``; a bfloat16 tensor, which numpy cannot hold, stays a CPU tensor."""
+    w = w.detach().cpu()
+    return w.contiguous() if w.dtype == torch.bfloat16 else np.array(w.numpy())
+
+
+def convert_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A torch state dict (any dialect above) as ``{params, batch_stats, spectral}``.
+
+    The ``generator.*`` copies are stripped first and old-style spectral-norm
+    keys are mapped (:func:`convert_reference_state_dict`). Kernels go OIHW ->
+    HWIO, OIDHW -> DHWIO and ``(out, in)`` -> ``(in, out)``; a BatchNorm's
+    ``weight`` is its ``scale``, its running statistics are ``batch_stats``
+    ``mean`` / ``var``; each ``_u`` / ``_v`` pair is a ``uv`` tuple;
+    ``num_batches_tracked`` is dropped, as in the JAX package. Leaves are
+    numpy copies (bfloat16: CPU tensors); the collections without a leaf are
+    left out.
+    """
+    sd = {k: torch.as_tensor(v) for k, v in convert_reference_state_dict(state_dict).items()}
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}, "spectral": {}}
+    uv: Dict[str, Dict[str, Any]] = {}
+    sn_tail = ".parametrizations.weight."
+
+    def put(collection: str, mod: str, leaf: str, value) -> None:
+        node = trees[collection]
+        for part in _module_path(mod):
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    for key, value in sd.items():
+        if sn_tail in key:
+            mod, _, tail = key.partition(sn_tail)
+            if tail == "original":
+                put("params", mod, "kernel", _leaf(_to_jax_layout(value)))
+            else:  # "0._u" / "0._v"
+                uv.setdefault(mod, {})[tail[-1]] = _leaf(value)
+            continue
+        mod, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            put("batch_stats", mod, leaf[len("running_"):], _leaf(value))
+        elif leaf == "weight":
+            bn = f"{mod}.running_mean" in sd  # as the JAX converter tells a BatchNorm
+            put("params", mod, "scale" if bn else "kernel",
+                _leaf(value if bn else _to_jax_layout(value)))
+        else:  # bias, gamma
+            put("params", mod, leaf, _leaf(value))
+
+    for mod, pair in uv.items():
+        put("spectral", mod, "uv", (pair["u"], pair["v"]))
+    return {name: tree for name, tree in trees.items() if tree or name == "params"}

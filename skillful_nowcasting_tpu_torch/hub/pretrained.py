@@ -3,16 +3,24 @@
 Port of ``skillful_nowcasting_tpu/hub/pretrained.py``. Every public model
 class mixes in :class:`HubMixin`, the reference's ``PyTorchModelHubMixin``
 contract: a directory holds ``config.json`` (the constructor's arguments;
-unknown keys are ignored) and the weights in the reference torch state-dict
-schema, as ``model.safetensors`` or ``pytorch_model.bin``. A Lightning
-``.ckpt`` file of the reference's training loads too (:mod:`.lightning`).
+unknown keys are ignored) and the weights, in one of three files, read in
+this order:
 
-The port's own state dict already has the reference keys, so its native
-format is the reference's: :meth:`HubMixin.save_pretrained` writes
-``config.json`` + ``model.safetensors``, which the JAX package reads as a
-torch checkpoint. Loading maps the other reference dialects first
+* ``flax_model.msgpack``, the JAX package's native format (what its
+  ``BoundModel.save_pretrained`` writes; :mod:`.serialization`), whose
+  variable tree is mapped by :func:`~.convert.state_dict_from_variables`;
+* ``model.safetensors`` or ``pytorch_model.bin`` in the reference torch
+  state-dict schema.
+
+A Lightning ``.ckpt`` file of the reference's training loads too
+(:mod:`.lightning`). The port's own state dict has the reference keys:
+:meth:`HubMixin.save_pretrained` writes ``config.json`` +
+``model.safetensors``, which the JAX package reads as a torch checkpoint,
+and :func:`save_checkpoint` writes the JAX package's native format. Loading
+maps the other reference dialects first
 (:func:`~.convert.convert_reference_state_dict`) and then loads with
 ``strict=True``: a missing, extra or misshapen tensor raises and names it.
+A malformed weight file raises; no other file is tried in its place.
 
 The module is built on the ``meta`` device (no memory, no init compute) and
 each tensor goes from the file straight to ``device``, so no full CPU model
@@ -32,10 +40,15 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from .convert import convert_reference_state_dict
+from . import serialization
+from .convert import (
+    convert_reference_state_dict,
+    convert_torch_state_dict,
+    state_dict_from_variables,
+)
 from .safetensors import load_file, save_file
+from .serialization import CONFIG_NAME, FLAX_WEIGHTS_NAME
 
-CONFIG_NAME = "config.json"
 SAFETENSORS_NAME = "model.safetensors"
 TORCH_WEIGHTS_NAME = "pytorch_model.bin"
 SHARED_STACKS = ("conditioning_stack", "latent_stack", "sampler")
@@ -138,7 +151,8 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if os.path.exists(bin_path):  # weights_only: no pickled code runs
         return dict(torch.load(bin_path, map_location="cpu", weights_only=True))
     raise FileNotFoundError(
-        f"no weight file ({SAFETENSORS_NAME} or {TORCH_WEIGHTS_NAME}) in {path}"
+        f"no weight file ({FLAX_WEIGHTS_NAME}, {SAFETENSORS_NAME} or {TORCH_WEIGHTS_NAME}) "
+        f"in {path}"
     )
 
 
@@ -151,11 +165,15 @@ def from_pretrained(cls, pretrained: str, *, device="cuda", **config_overrides) 
         config, state_dict = convert_lightning_checkpoint(pretrained)
     else:
         path = _resolve_dir(pretrained)
-        config = {}
-        if os.path.exists(os.path.join(path, CONFIG_NAME)):
-            with open(os.path.join(path, CONFIG_NAME)) as f:
-                config = json.load(f)
-        state_dict = read_state_dict(path)
+        if os.path.exists(os.path.join(path, FLAX_WEIGHTS_NAME)):  # first, as in the JAX package
+            config, variables = serialization.load_checkpoint(path)
+            state_dict = state_dict_from_variables(variables)
+        else:
+            config = {}
+            if os.path.exists(os.path.join(path, CONFIG_NAME)):
+                with open(os.path.join(path, CONFIG_NAME)) as f:
+                    config = json.load(f)
+            state_dict = read_state_dict(path)
     return load_into(build_module(cls, config, **config_overrides), state_dict, device)
 
 
@@ -180,6 +198,13 @@ def save_pretrained(module: nn.Module, save_directory: str) -> int:
     with open(os.path.join(save_directory, CONFIG_NAME), "w") as f:
         json.dump(module_config(module), f, indent=2, sort_keys=True)
     return save_file(reference_state_dict(module), os.path.join(save_directory, SAFETENSORS_NAME))
+
+
+def save_checkpoint(module: nn.Module, path: str) -> int:
+    """Write ``config.json`` + ``flax_model.msgpack``, what the JAX package's
+    ``BoundModel.save_pretrained`` writes; returns the bytes of the weight file."""
+    return serialization.save_checkpoint(
+        path, module_config(module), convert_torch_state_dict(module.state_dict()))
 
 
 def compose_generator(conditioning_stack: nn.Module, latent_stack: nn.Module, sampler: nn.Module):

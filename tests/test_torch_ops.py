@@ -158,6 +158,8 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.hub.pretrained\n"
         "import skillful_nowcasting_tpu_torch.hub.lightning\n"
         "import skillful_nowcasting_tpu_torch.hub.safetensors\n"
+        "import skillful_nowcasting_tpu_torch.hub.msgpack\n"
+        "import skillful_nowcasting_tpu_torch.hub.serialization\n"
         "import skillful_nowcasting_tpu_torch.serving\n"
         "import skillful_nowcasting_tpu_torch.ops.tma\n"
         "import skillful_nowcasting_tpu_torch.trainer, skillful_nowcasting_tpu_torch.checkpoint\n"
@@ -173,7 +175,7 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.layers.coord_conv\n"
         "import skillful_nowcasting_tpu_torch.ops.norm, skillful_nowcasting_tpu_torch.ops.conv\n"
         "import skillful_nowcasting_tpu_torch.layers.convgru, skillful_nowcasting_tpu_torch.dgmr\n"
-        "roots = ('jax', 'flax', 'skillful_nowcasting_tpu')\n"
+        "roots = ('jax', 'flax', 'msgpack', 'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
     )
