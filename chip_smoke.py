@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel, scoring and spatially sharded paths (forward and train) once on one NVIDIA GPU.
+"""Drive the PyTorch port's nowcast, serving, artifact, bf16, training, retraining, data-parallel, scoring, spatially sharded (forward and train) and JAX-checkpoint paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile-step`` only profiles one full-width bf16
@@ -186,6 +186,17 @@ the top kernels by device time) and prints no result line.
    at step 2 with ``val_skill`` (4 / 8 launches a forward of its eval step
    and skill ensemble, on windows; finite logged metrics). Two ranks on one
    card, again: semantics and costs, not scaling.
+
+21. The JAX package's Orbax checkpoint at full width: phase 7's paper config
+   in f32 takes one train step, ``checkpoint.save_jax_state`` writes it
+   (bytes, seconds), a fresh state on the card restores it (read + decode,
+   then convert + copy, seconds apart); every parameter, buffer, Adam moment
+   and step, scheduler count and ``state.step`` must be ``torch.equal`` to
+   the source's; the eval step of both, through both f32 kernels, must be
+   equal with 32 / 64 launches; the next train step of both, with the same
+   draws and ``cudnn.deterministic``, must give equal metrics and
+   parameters; a ``Trainer`` on the directory must print "resumed from step
+   1" and take one step, writing its own ``state.pt``.
 
 Every path's launches are counted from 0 and must be 4 (rollout) and 8
 (GBlock) per generator forward, all of the path's dtype. Any failure exits
@@ -922,6 +933,154 @@ def retrain_full_width(torch, dev, card, counters) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"trainer_validation_bf16": trainer_launches}
+
+
+def _leaves(node) -> list:
+    """The leaves of nested dicts and lists (an Orbax tree), ``None`` (an empty node) left out."""
+    if isinstance(node, dict):
+        return [a for v in node.values() for a in _leaves(v)]
+    if isinstance(node, list):
+        return [a for v in node for a in _leaves(v)]
+    return [] if node is None else [node]
+
+
+def orbax_full_width(torch, card, counters) -> dict:
+    """Phase 21: the JAX package's Orbax format at full width, written, restored and resumed."""
+    import contextlib
+    import io
+
+    from skillful_nowcasting_tpu_torch import DGMR, checkpoint, training
+    from skillful_nowcasting_tpu_torch.ckpt_format import tree as orbax_tree
+    from skillful_nowcasting_tpu_torch.data import synthetic_radar_batches_device
+    from skillful_nowcasting_tpu_torch.trainer import Trainer
+    from skillful_nowcasting_tpu_torch.utils import random_fill
+
+    def fresh_model(seed):
+        return training.desaturate_discriminator(
+            random_fill(DGMR(), torch.Generator().manual_seed(seed)))
+
+    # Phase 7's paper config in f32: one train step, so moments and counts are non-zero.
+    model = fresh_model(60)
+    gen = torch.Generator().manual_seed(61)
+    x = torch.rand((2, 4, 1, model.output_shape, model.output_shape), generator=gen)
+    y = torch.rand((2, model.forecast_steps, 1, model.output_shape, model.output_shape),
+                   generator=gen)
+    state = training.init_train_state(model)
+    train_step = training.make_train_step(model)
+    train_step(state, x, y, torch.Generator().manual_seed(600))
+    saved = state.step
+    root = tempfile.mkdtemp(prefix="dgmr_orbax_")
+    try:
+        manager = checkpoint.make_manager(f"{root}/ckpt/latest")
+        run_gen = torch.Generator().manual_seed(62)
+        t0 = time.perf_counter()
+        nbytes = checkpoint.save_jax_state(manager, saved, state, run_gen, {"train/g_loss": 1.0})
+        save_s = time.perf_counter() - t0
+        pt_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+        # Restore into a fresh state on the card: read + decode, then the copy to the card.
+        restored = training.init_train_state(fresh_model(63))
+        step_dir = manager.step_dir(saved)
+        t0 = time.perf_counter()
+        tree = orbax_tree.read_tree(step_dir)
+        read_s = time.perf_counter() - t0
+        decoded = sum(a.nbytes for a in _leaves(tree))  # numpy arrays: no bfloat16 leaf here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore_jax_state(manager, restored, torch.Generator(), saved, tree=tree)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        del tree
+        print(f"21 orbax: save_jax_state {nbytes} bytes ({nbytes / pt_bytes:.3f} x the f32 "
+              f"parameter bytes {pt_bytes}) in {save_s:.4f} s; restore: read + decode "
+              f"{read_s:.4f} s ({decoded / read_s / 1e6:.1f} MB/s of {decoded} decoded bytes, "
+              f"raw-block frames), convert + copy to the card {copy_s:.4f} s; on {card}")
+
+        # Every parameter, buffer, Adam moment and step, scheduler count and state.step.
+        src, dst = state.model.state_dict(), restored.model.state_dict()
+        differ = [k for k in src if not torch.equal(src[k], dst[k])]
+        for name, (a, b) in (("g_opt", (state.g_opt, restored.g_opt)),
+                             ("d_opt", (state.d_opt, restored.d_opt))):
+            sa, sb = a.state_dict(), b.state_dict()
+            if len(sa["state"]) != len(a.param_groups[0]["params"]):
+                fail(f"21: {name} holds state for {len(sa['state'])} of "
+                     f"{len(a.param_groups[0]['params'])} parameters after a train step")
+            differ += [f"{name}.{i}.{k}" for i, st in sa["state"].items() for k in st
+                       if not torch.equal(st[k], sb["state"][i][k])]
+            if sa["param_groups"] != sb["param_groups"]:
+                differ.append(f"{name}.param_groups")
+        for name in ("g_sched", "d_sched"):
+            if getattr(state, name).last_epoch != getattr(restored, name).last_epoch:
+                differ.append(f"{name}.last_epoch")
+        if restored.step != state.step:
+            differ.append("step")
+        print(f"21 orbax: restored state against the source: {len(src)} model tensors, "
+              f"{len(state.g_opt.state) + len(state.d_opt.state)} Adam states, both schedulers' "
+              f"last_epoch and state.step; torch.equal except {differ}")
+        if differ:
+            fail(f"21: the restored state differs from the source: {differ[:10]}")
+
+        # The eval step through both f32 kernels, on the source and on the restored state.
+        evals = []
+        for st in (state, restored):
+            for counter in counters:
+                counter.launches = 0
+            out = training.make_eval_step(st.model)(st, x, y, torch.Generator().manual_seed(610))
+            evals.append(({k: v.clone() for k, v in out.items()}, launch_counts(counters)))
+        expected = expected_launches(2 + model.generation_steps)
+        values = {k: v.item() for k, v in evals[1][0].items()}
+        print(f"21 orbax: eval step launches {evals[0][1]} (source) and {evals[1][1]} "
+              f"(restored), expected {expected}; metrics {json.dumps(values)}")
+        if evals[0][1] != expected or evals[1][1] != expected:
+            fail(f"21: eval step launches {evals[0][1]} / {evals[1][1]}, expected {expected}")
+        if any(not torch.equal(evals[0][0][k], evals[1][0][k]) for k in evals[0][0]):
+            fail("21: the restored model's eval step differs from the source's")
+        eval_launches = evals[1][1]
+
+        # The next train step from both, with the same draws, cuDNN deterministic.
+        was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            outs = []
+            for st in (state, restored):
+                m = training.make_train_step(st.model)(st, x, y, torch.Generator().manual_seed(620))
+                outs.append({k: v.clone() for k, v in m.items()})
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+        loss_differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+        src, dst = state.model.state_dict(), restored.model.state_dict()
+        param_differ = [k for k in src if not torch.equal(src[k], dst[k])]
+        worst = max(((src[k].float() - dst[k].float()).abs().max().item()
+                     / max(src[k].float().abs().max().item(), 1e-30) for k in param_differ),
+                    default=0.0)
+        print(f"21 orbax: the next train step (cuDNN deterministic) from the source and the "
+              f"restored state: metrics differ {loss_differ}, {len(param_differ)} of {len(src)} "
+              f"model tensors differ (worst {worst:.3e} of a tensor's max)")
+        if loss_differ or param_differ:
+            fail(f"21: the next train step differs: metrics {loss_differ}, tensors "
+                 f"{param_differ[:10]}")
+        del restored, outs, evals
+        torch.cuda.empty_cache()
+
+        # A Trainer on that ckpt_dir resumes from the Orbax step and takes one step.
+        trainer = Trainer(fresh_model(64), max_steps=saved + 1, ckpt_dir=f"{root}/ckpt",
+                          ckpt_every=1, log_every=1, prefetch=0, seed=65)
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            resumed = trainer.fit(synthetic_radar_batches_device(batch_size=2, seed=66))
+        fit_s = time.perf_counter() - t0
+        said = [line for line in err.getvalue().splitlines() if "resumed" in line]
+        kinds = {s: manager.kind(s) for s in manager.all_steps()}
+        print(f"21 orbax: Trainer on the directory: {said}, ran to step {resumed.step} in "
+              f"{fit_s:.4f} s (restore, one step, saves); latest/ {kinds}")
+        if said != [f"resumed from step {saved}"] or resumed.step != saved + 1:
+            fail(f"21: the Trainer did not resume from step {saved} and take one step")
+        if kinds != {saved: "orbax", saved + 1: "torch"}:
+            fail(f"21: latest/ holds {kinds}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"orbax_eval_step": eval_launches}
 
 
 def device_tiles(h: int, w: int, tile: int = 256, overlap: int = 64) -> int:
@@ -2979,6 +3138,11 @@ def main() -> None:
     by_path.update(space_train(torch, dev, rounding))
 
     stamp("20")
+    # 21. The JAX package's Orbax checkpoint at full width: written by the port, restored bit for
+    # bit, the next train step and the eval step (both f32 kernels) equal, a Trainer resumed.
+    by_path.update(orbax_full_width(torch, card, counters))
+
+    stamp("21")
     gru = ("skillful_nowcasting_tpu_torch/csrc/gru_rollout.cu",
            "skillful_nowcasting_tpu/ops/pallas_gru.py:40")
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",

@@ -175,10 +175,14 @@ def lr_scheduler(opt: torch.optim.Optimizer, spec: Optional[str]) -> LambdaLR:
     """Drive ``opt``'s lr by :func:`make_lr_schedule` from its update count (step it after ``opt``).
 
     As with optax, the first update uses the schedule's value at count 0.
+    The scheduler keeps ``spec`` (``.spec``): a JAX-format checkpoint holds a
+    schedule's count only where the lr is not fixed.
     """
     base = opt.param_groups[0]["lr"]
     schedule = make_lr_schedule(base, spec)
-    return LambdaLR(opt, lambda count: schedule(count) / base)
+    sched = LambdaLR(opt, lambda count: schedule(count) / base)
+    sched.spec = spec
+    return sched
 
 
 def init_train_state(

@@ -175,7 +175,12 @@ def test_port_imports_no_jax():
         "import skillful_nowcasting_tpu_torch.layers.coord_conv\n"
         "import skillful_nowcasting_tpu_torch.ops.norm, skillful_nowcasting_tpu_torch.ops.conv\n"
         "import skillful_nowcasting_tpu_torch.layers.convgru, skillful_nowcasting_tpu_torch.dgmr\n"
-        "roots = ('jax', 'flax', 'msgpack', 'skillful_nowcasting_tpu')\n"
+        "import skillful_nowcasting_tpu_torch.ckpt_format.zstd\n"
+        "import skillful_nowcasting_tpu_torch.ckpt_format.ocdbt\n"
+        "import skillful_nowcasting_tpu_torch.ckpt_format.zarr\n"
+        "import skillful_nowcasting_tpu_torch.ckpt_format.tree\n"
+        "roots = ('jax', 'flax', 'msgpack', 'orbax', 'tensorstore', 'zstandard',\n"
+        "         'skillful_nowcasting_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
     )

@@ -129,8 +129,8 @@ def _as_numpy(tree):
 
 
 @pytest.fixture(scope="module")
-def setup():
-    return train_setup()
+def setup(tmp_path_factory):
+    return train_setup(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

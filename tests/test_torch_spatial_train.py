@@ -143,8 +143,8 @@ def _jax_eval_start(setup):
 
 
 @pytest.fixture(scope="module")
-def setup():
-    return train_setup()
+def setup(tmp_path_factory):
+    return train_setup(tmp_path_factory)
 
 
 def _step_against_jax(got, reference, spectral) -> dict:

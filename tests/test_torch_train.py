@@ -67,9 +67,9 @@ def sgd_state(model):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     """The JAX model, its perturbed tree before and after desaturation, and a batch."""
-    return train_setup()
+    return train_setup(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

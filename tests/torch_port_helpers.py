@@ -165,20 +165,29 @@ TRAIN_LR = (5e-5, 2e-4)  # SGD for G, D
 TRAIN_KEY = 7  # the JAX train step's key
 
 
-def train_setup():
-    """The JAX model, its perturbed tree after and before desaturation, and a B=2 batch (NTHWC)."""
+def train_setup(tmp_path_factory):
+    """The JAX model, its perturbed tree after and before desaturation, and a B=2 batch (NTHWC).
+
+    The arrays (an abstract init and a fill of every leaf, several seconds)
+    are made once per test run (``run_once``); each worker builds the module.
+    """
     from skillful_nowcasting_tpu import DGMR as JaxDGMR
     from skillful_nowcasting_tpu import training as jtraining
     from skillful_nowcasting_tpu.hub.pretrained import abstract_variables
 
     jmodel = JaxDGMR(**TRAIN_TINY)
-    filled = jax.tree.map(np.array, random_fill_variables(abstract_variables(jmodel), 0))
-    saturated = perturb(filled, 1)
-    variables = dict(saturated, params=jax.tree.map(
-        np.array, jtraining.desaturate_discriminator(saturated["params"])))
-    rng = np.random.default_rng(2)
-    x = rng.random((2, 4, 64, 64, 1), np.float32)
-    y = rng.random((2, 2, 64, 64, 1), np.float32)
+
+    def start():
+        filled = jax.tree.map(np.array, random_fill_variables(abstract_variables(jmodel), 0))
+        saturated = perturb(filled, 1)
+        variables = dict(saturated, params=jax.tree.map(
+            np.array, jtraining.desaturate_discriminator(saturated["params"])))
+        rng = np.random.default_rng(2)
+        x = rng.random((2, 4, 64, 64, 1), np.float32)
+        y = rng.random((2, 2, 64, 64, 1), np.float32)
+        return lambda: (variables, x, y, saturated)
+
+    (variables, x, y, saturated), _ = run_once(tmp_path_factory, "train_setup", start)
     return jmodel, variables, x, y, saturated
 
 
