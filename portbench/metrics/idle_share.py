@@ -1,0 +1,7 @@
+"""Device: the share of the traced window in which no kernel, memcpy or memset ran on the card."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0 or not r.trace.device:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
