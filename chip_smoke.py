@@ -31,8 +31,9 @@ the top kernels by device time) and prints no result line.
    rollout launch per ConvGRU level, two per GBlock).
 5. End-to-end parity: one B=1 forward with a fixed latent on the card
    (kernels) and on the CPU (plain versions): max-abs <= 1e-3.
-6. Where the time goes: one per-sample request with every layer bracketed by
-   ``torch.cuda.synchronize()``, each layer's share of that request's wall.
+6. Where the time goes: one per-sample request under
+   ``profiling.record(device=True)``, each span's stream time as a share of
+   that request's wall.
 7. Training at full width: the paper config with seeded random weights
    (``random_fill`` + ``desaturate_discriminator``), B=2 random context and
    target sequences, ``init_train_state``, 3 ``make_train_step`` steps
@@ -82,8 +83,8 @@ the top kernels by device time) and prints no result line.
 15. bf16 at full width: 3 requests of B=2, S=6 from a bf16 batch (frames/s,
    latency, 4 / 8 bf16 launches a forward and no f32 launch); bf16 against
    f32 on fixed latents below 0.15 of scale; one MRMS 3500x7000 field through
-   ``tiled_nowcast_device(dtype=torch.bfloat16)``; a synchronized bf16 layer
-   breakdown.
+   ``tiled_nowcast_device(dtype=torch.bfloat16)``; a bf16 layer breakdown from
+   the spans.
 16. The retraining path at full width (paper config, seeded weights,
    desaturated D, B=2 synthetic radar rendered on the card): 3 bf16 train
    steps (seconds, the D / G / logging split of steps 2-3, peak memory,
@@ -406,58 +407,42 @@ def serving_model(torch, dev, **config):
 
 
 def layer_times(torch, model, x, card: str, tag: str = "") -> None:
-    """One per-sample request with every layer bracketed by synchronize(); shares of its wall."""
-    import skillful_nowcasting_tpu_torch.layers.convgru as convgru_mod
-    import skillful_nowcasting_tpu_torch.models.common as common_mod
+    """One per-sample request under ``profiling.record(device=True)``: each span's stream time.
+
+    Per span name, the count and the stream milliseconds summed (a
+    ``dgmr.derive.sn`` inside a ``dgmr.derive.gblock`` or ``.rollout`` counts
+    in both; ``dgmr.derive.*`` sums the outermost derivations), each as a share
+    of the request's wall.
+    """
+    from skillful_nowcasting_tpu_torch import profiling
     from skillful_nowcasting_tpu_torch.inference import make_generate
 
-    totals: dict[str, float] = {}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
-
-    sampler = model.sampler
-    groups = {
-        "conditioning_stack": [model.conditioning_stack],
-        "latent_stack": [model.latent_stack],
-        "convgru (gx convs + rollout)": [getattr(sampler, f"convGRU{i}") for i in range(1, 5)],
-        "gblock g1..g4 (fold + kernel)": [getattr(sampler, f"g{i}") for i in range(1, 5)],
-        "upsample_gblock up_g1..up_g4": [getattr(sampler, f"up_g{i}") for i in range(1, 5)],
-        "sn 1x1 convs": [getattr(sampler, n) for n in
-                         ("gru_conv_1x1", "gru_conv_1x1_2", "gru_conv_1x1_3", "gru_conv_1x1_4")],
-        "head (bn, 1x1)": [sampler.bn, sampler.conv_1x1],
-    }
-    saved = []
-    for name, mods in groups.items():
-        for mod in mods:
-            saved.append((mod, mod.forward))
-            mod.forward = timed(name, mod.forward)
-    rollout, gblock = convgru_mod.convgru_rollout, common_mod.gblock_fused
-    convgru_mod.convgru_rollout = timed("rollout kernel", rollout)
-    common_mod.gblock_fused = timed("gblock kernel", gblock)
     generate = make_generate(model)
-    try:
-        generate(x, torch.Generator().manual_seed(7))  # warm-up
-        totals.clear()
-        torch.cuda.synchronize()
+    generate(x, torch.Generator().manual_seed(7))  # warm-up
+    torch.cuda.synchronize()
+    with profiling.record(device=True) as log:
         t0 = time.perf_counter()
         generate(x, torch.Generator().manual_seed(8))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        for mod, fwd in saved:
-            mod.forward = fwd
-        convgru_mod.convgru_rollout, common_mod.gblock_fused = rollout, gblock
-    for name, sec in totals.items():
-        print(f"layer{tag} {name}: {1e3 * sec:.3f} ms, "
-              f"{100 * sec / wall:.1f}% of the synchronized wall")
+    spans = log.spans()
+    by_id = {s["id"]: s for s in spans}
+    totals: dict[str, tuple] = {}
+    for s in spans:
+        if s["stream_ms"] is None:  # a host-only span (dgmr.generate)
+            continue
+        names = [s["name"]]
+        parent = by_id.get(s["parent"])
+        while parent is not None and not parent["name"].startswith("dgmr.derive."):
+            parent = by_id.get(parent["parent"])
+        if s["name"].startswith("dgmr.derive.") and parent is None:
+            names.append("dgmr.derive.*")
+        for name in names:
+            count, ms = totals.get(name, (0, 0.0))
+            totals[name] = (count + 1, ms + s["stream_ms"])
+    for name, (count, ms) in sorted(totals.items()):
+        print(f"layer{tag} {name}: {count} spans, {ms:.3f} stream ms, "
+              f"{100 * ms / (1e3 * wall):.1f}% of the wall")
     print(f"layer{tag} wall: {1e3 * wall:.3f} ms ({x.dtype}) on {card}")
 
 
@@ -2356,6 +2341,7 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
     """19b-d on one rank for one field and dtype: launches, the sharded forward against the dense one."""
     import skillful_nowcasting_tpu_torch.layers.convgru as convgru_mod
     import skillful_nowcasting_tpu_torch.models.common as common_mod
+    from skillful_nowcasting_tpu_torch import profiling
     from skillful_nowcasting_tpu_torch.parallel import (
         gather_space,
         halo_exchange,
@@ -2419,8 +2405,10 @@ def spatial_case(torch, model, mesh, x, z, dtype, counters, say) -> dict:
         return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30
 
     reset_halo_counters()
-    y, sec, peak = timed(lambda: fwd(x, z=z))
-    comm = {fn.__name__: (fn.calls, fn.bytes, round(fn.seconds, 4)) for fn in comms}
+    with profiling.record() as log:
+        y, sec, peak = timed(lambda: fwd(x, z=z))
+    comm = {fn.__name__: (fn.calls, fn.bytes, span_seconds(log, name))
+            for fn, name in zip(comms, ("dgmr.halo.window", "dgmr.halo.exchange"))}
     with torch.inference_mode():
         whole = gather_space(y, mesh)
         model(x, z=z)  # the dense forward's warm-up
@@ -2564,15 +2552,22 @@ def space_tiny_parity(torch, rank, dev, ref_path, say) -> None:
             fail(f"20a: the sharded step differs from {what} by {worst[0]} > {TRAIN_TOL}")
 
 
-def space_comm() -> dict:
-    """The halo counters since the last reset: (calls, bytes received, host seconds), forward and backward."""
+def span_seconds(log, name: str) -> float:
+    """Host seconds of the spans ``name`` in a ``profiling.record()`` log, rounded to 0.1 ms."""
+    return round(sum(s["t1_ns"] - s["t0_ns"] for s in log.spans() if s["name"] == name) * 1e-9, 4)
+
+
+def space_comm(log) -> dict:
+    """The halo counters since the last reset and the host seconds of their spans in ``log``:
+    (calls, bytes received, host seconds), forward and backward."""
     from skillful_nowcasting_tpu_torch.parallel import halo_exchange, halo_window
 
     return {"halo_exchange forward": (halo_exchange.calls, halo_exchange.bytes,
-                                      round(halo_exchange.seconds, 4)),
+                                      span_seconds(log, "dgmr.halo.exchange")),
             "halo_exchange backward": (halo_exchange.backward_calls, halo_exchange.backward_bytes,
-                                       round(halo_exchange.backward_seconds, 4)),
-            "halo_window": (halo_window.calls, halo_window.bytes, round(halo_window.seconds, 4))}
+                                       span_seconds(log, "dgmr.halo.backward")),
+            "halo_window": (halo_window.calls, halo_window.bytes,
+                            span_seconds(log, "dgmr.halo.window"))}
 
 
 def space_train_full_width(torch, rank, dev, counters, say) -> dict:
@@ -2582,7 +2577,7 @@ def space_train_full_width(torch, rank, dev, counters, say) -> dict:
 
     import torch.distributed as dist
 
-    from skillful_nowcasting_tpu_torch import DGMR, training
+    from skillful_nowcasting_tpu_torch import DGMR, profiling, training
     from skillful_nowcasting_tpu_torch.parallel import (
         gather_rows,
         make_dp_eval_step,
@@ -2636,8 +2631,9 @@ def space_train_full_width(torch, rank, dev, counters, say) -> dict:
     for counter in counters:
         counter.launches = 0
     reset_halo_counters()
-    m, sec, peak = timed(lambda: step(sgd(model), xs, ys, draws=draws))
-    comm, launches = space_comm(), launch_counts(counters)
+    with profiling.record() as log:
+        m, sec, peak = timed(lambda: step(sgd(model), xs, ys, draws=draws))
+    comm, launches = space_comm(log), launch_counts(counters)
     equal = checksum(model)
     say(f"20b f32 train step on stripes of {size // DP_RANKS} rows: {sec:.3f} s, peak {peak:.3f} "
         f"GiB above the inputs, launches {launches} (expected 0 each), replicas bit-identical "
@@ -2679,9 +2675,10 @@ def space_train_full_width(torch, rank, dev, counters, say) -> dict:
     for counter in counters:
         counter.launches = 0
     reset_halo_counters()
-    m, sec, peak = timed(lambda: step(training.init_train_state(model), xs, ys,
-                                      torch.Generator().manual_seed(133)))
-    comm, launches = space_comm(), launch_counts(counters)
+    with profiling.record() as log:
+        m, sec, peak = timed(lambda: step(training.init_train_state(model), xs, ys,
+                                          torch.Generator().manual_seed(133)))
+    comm, launches = space_comm(log), launch_counts(counters)
     values = {k: v.item() for k, v in m.items()}
     equal = checksum(model)
     say(f"20b bf16 R1 train step on stripes: {sec:.3f} s, peak {peak:.3f} GiB above the inputs, "
@@ -2699,8 +2696,9 @@ def space_train_full_width(torch, rank, dev, counters, say) -> dict:
     for counter in counters:
         counter.launches = 0
     reset_halo_counters()
-    m, sec, peak = timed(lambda: ev(state, xs, ys, torch.Generator().manual_seed(134)))
-    comm, launches = space_comm(), launch_counts(counters)
+    with profiling.record() as log:
+        m, sec, peak = timed(lambda: ev(state, xs, ys, torch.Generator().manual_seed(134)))
+    comm, launches = space_comm(log), launch_counts(counters)
     expected = expected_launches(forwards)
     say(f"20b f32 eval step on stripes: {sec:.3f} s, peak {peak:.3f} GiB above the inputs, "
         f"{forwards} generator forwards, launches {launches}, expected {expected}; halo {comm}")

@@ -24,6 +24,7 @@ from .layers.utils import refuse_coord
 from .models.common import ContextConditioningStack, LatentConditioningStack
 from .models.discriminators import Discriminator
 from .models.generators import Sampler, ensemble_forward
+from .profiling import span
 
 HPARAM_FIELDS = (
     "forecast_steps",
@@ -135,9 +136,10 @@ class DGMR(nn.Module, HubMixin):
         :class:`~.parallel.spatial.SpaceLayout`: ``x`` and the nowcast are then
         its stripes of an H-sharded field, and the latent stack runs whole.
         """
-        states = self.conditioning_stack(x, space=space)
-        latent = self.latent_stack(x, z=z, generator=generator)
-        return self.sampler(states, latent, space=space)
+        with span("dgmr.forward", device=x):
+            states = self.conditioning_stack(x, space=space)
+            latent = self.latent_stack(x, z=z, generator=generator)
+            return self.sampler(states, latent, space=space)
 
     def generate_ensemble(
         self,
@@ -152,7 +154,8 @@ class DGMR(nn.Module, HubMixin):
         conditioning stack once and one sampler call at batch ``S * B``.
         """
         s = num_samples if num_samples is not None else self.num_samples
-        return ensemble_forward(self, x, s, z=z, generator=generator)
+        with span("dgmr.forward", device=x):
+            return ensemble_forward(self, x, s, z=z, generator=generator)
 
     def discriminate(
         self,

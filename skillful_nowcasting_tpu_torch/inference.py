@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from .metrics import crps_ensemble, csi_counts, ensemble_mean_mse, pooled_crps
 from .models.common import DRAWS_NOT_SHARED, draw_latents
+from .profiling import span
 
 
 def make_generate(
@@ -89,10 +90,11 @@ def make_generate(
     def generate(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if space is not None and generator is None:
             raise ValueError(DRAWS_NOT_SHARED)
-        x = x.to(next(model.parameters()).device)
-        z = draw_latents(model.latent_stack.shape, n, generator, x)
-        chunks = [x] if cap is None else x.split(cap)
-        return torch.cat([one_chunk(xc, z) for xc in chunks], dim=1)
+        with span("dgmr.generate", entry=True):
+            x = x.to(next(model.parameters()).device)
+            z = draw_latents(model.latent_stack.shape, n, generator, x)
+            chunks = [x] if cap is None else x.split(cap)
+            return torch.cat([one_chunk(xc, z) for xc in chunks], dim=1)
 
     return generate
 
@@ -483,66 +485,77 @@ def tiled_nowcast_device(
     if group is not None and fetch_stripes != 1:
         raise ValueError("with a mesh the field is stitched by one all-reduce: fetch_stripes "
                          "must be 1")
-    if isinstance(frames, torch.Tensor):  # a field on the card stays there
-        field = frames.detach().to(torch.float32).to(device, dtype)
-    else:
-        field = torch.as_tensor(np.asarray(frames, np.float32)).to(device, dtype)
-    t_in, c, h, w = field.shape
-    margin, stride = overlap // 2, tile - overlap
-    z = _shared_latent(model, c, tile, z, generator, device, dtype)
-
-    def padded(n):  # tiles at `stride` cover the padded extent exactly
-        n2 = n + 2 * margin
-        return tile if n2 < tile else tile + -(-(n2 - tile) // stride) * stride
-
-    hp, wp = padded(h), padded(w)
-    field = F.pad(field, (margin, wp - w - margin, margin, hp - h - margin), mode="replicate")
-    # Tile starts in padded coordinates; the interior of the tile at padded
-    # (i, j) starts at real (i, j) and is `stride` wide.
-    rows = range(0, hp - tile + 1, stride)
-    cols = range(0, wp - tile + 1, stride)
-    positions = [(i, j) for i in rows for j in cols]
-    starts = range(0, len(positions), batch_tiles)
-    out = (torch.empty if group is None else torch.zeros)(
-        (model.sampler.forecast_steps, c, h, w), dtype=torch.float32, device=device)
-    if group is not None:  # this rank's contiguous block of the batches
-        per = -(-len(starts) // n_ranks)
-        starts = starts[rank * per : (rank + 1) * per]
-
-    cuda = device.type == "cuda"
-    host = torch.empty(out.shape, dtype=torch.float32, pin_memory=cuda) if rank == 0 else None
-    copier = torch.cuda.Stream(device) if cuda else None
-    # Stripe k ends with tile row last[k]: its pixels are final once that row's last tile is.
-    last = [s[-1] for s in np.array_split(np.arange(len(rows)), min(fetch_stripes, len(rows)))]
-    done_rows = 0  # output rows [0, done_rows) already sent to the host
-    for start in starts:
-        chunk = positions[start : start + batch_tiles]
-        tiles = torch.stack([field[:, :, i : i + tile, j : j + tile] for i, j in chunk])
-        preds = model(tiles, z=z)
-        for (i, j), pred in zip(chunk, preds):
-            n_y, n_x = min(stride, h - i), min(stride, w - j)
-            out[:, :, i : i + n_y, j : j + n_x] = pred[
-                :, :, margin : margin + n_y, margin : margin + n_x
-            ]
-        while group is None and last and (start + len(chunk)) >= (last[0] + 1) * len(cols):
-            y1 = min(rows[last.pop(0)] + stride, h)
-            stripe = slice(done_rows, y1)
-            if cuda:  # the side stream waits for this stripe's writes, then copies it
-                copier.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(copier):
-                    for t in range(out.shape[0]):  # host[t, ci, stripe] is contiguous
-                        for ci in range(c):
-                            host[t, ci, stripe].copy_(out[t, ci, stripe], non_blocking=True)
+    with span("dgmr.tiler", entry=True):
+        with span("dgmr.tiler.upload", device=device):
+            if isinstance(frames, torch.Tensor):  # a field on the card stays there
+                field = frames.detach().to(torch.float32).to(device, dtype)
             else:
-                host[:, :, stripe] = out[:, :, stripe]
-            done_rows = y1
-    if group is not None:
-        import torch.distributed as dist
+                field = torch.as_tensor(np.asarray(frames, np.float32)).to(device, dtype)
+        t_in, c, h, w = field.shape
+        margin, stride = overlap // 2, tile - overlap
+        z = _shared_latent(model, c, tile, z, generator, device, dtype)
 
-        dist.all_reduce(out, group=group)
-        if rank:
-            return None
-        host.copy_(out)
-    if cuda:
-        copier.synchronize()
-    return host.numpy()
+        def padded(n):  # tiles at `stride` cover the padded extent exactly
+            n2 = n + 2 * margin
+            return tile if n2 < tile else tile + -(-(n2 - tile) // stride) * stride
+
+        hp, wp = padded(h), padded(w)
+        with span("dgmr.tiler.pad", device=field):
+            field = F.pad(field, (margin, wp - w - margin, margin, hp - h - margin),
+                          mode="replicate")
+        # Tile starts in padded coordinates; the interior of the tile at padded
+        # (i, j) starts at real (i, j) and is `stride` wide.
+        rows = range(0, hp - tile + 1, stride)
+        cols = range(0, wp - tile + 1, stride)
+        positions = [(i, j) for i in rows for j in cols]
+        starts = range(0, len(positions), batch_tiles)
+        out = (torch.empty if group is None else torch.zeros)(
+            (model.sampler.forecast_steps, c, h, w), dtype=torch.float32, device=device)
+        if group is not None:  # this rank's contiguous block of the batches
+            per = -(-len(starts) // n_ranks)
+            starts = starts[rank * per : (rank + 1) * per]
+
+        cuda = device.type == "cuda"
+        with span("dgmr.tiler.host_buffer"):
+            host = (torch.empty(out.shape, dtype=torch.float32, pin_memory=cuda) if rank == 0
+                    else None)
+        copier = torch.cuda.Stream(device) if cuda else None
+        # Stripe k ends with tile row last[k]: its pixels are final once that row's last tile is.
+        last = [s[-1] for s in np.array_split(np.arange(len(rows)), min(fetch_stripes, len(rows)))]
+        done_rows = 0  # output rows [0, done_rows) already sent to the host
+        for start in starts:
+            chunk = positions[start : start + batch_tiles]
+            with span("dgmr.tiler.gather", device=field):
+                tiles = torch.stack([field[:, :, i : i + tile, j : j + tile] for i, j in chunk])
+            preds = model(tiles, z=z)
+            with span("dgmr.tiler.scatter", device=out):
+                for (i, j), pred in zip(chunk, preds):
+                    n_y, n_x = min(stride, h - i), min(stride, w - j)
+                    out[:, :, i : i + n_y, j : j + n_x] = pred[
+                        :, :, margin : margin + n_y, margin : margin + n_x
+                    ]
+            while group is None and last and (start + len(chunk)) >= (last[0] + 1) * len(cols):
+                y1 = min(rows[last.pop(0)] + stride, h)
+                stripe = slice(done_rows, y1)
+                if cuda:  # the side stream waits for this stripe's writes, then copies it
+                    copier.wait_stream(torch.cuda.current_stream(device))
+                    with torch.cuda.stream(copier), span("dgmr.tiler.fetch", device=out):
+                        for t in range(out.shape[0]):  # host[t, ci, stripe] is contiguous
+                            for ci in range(c):
+                                host[t, ci, stripe].copy_(out[t, ci, stripe], non_blocking=True)
+                else:
+                    with span("dgmr.tiler.fetch"):
+                        host[:, :, stripe] = out[:, :, stripe]
+                done_rows = y1
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(out, group=group)
+            if rank:
+                return None
+            with span("dgmr.tiler.fetch", device=out):
+                host.copy_(out)
+        if cuda:
+            with span("dgmr.tiler.fetch"):
+                copier.synchronize()
+        return host.numpy()

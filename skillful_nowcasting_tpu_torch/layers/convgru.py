@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv2d, convgru_rollout
+from ..profiling import span
 
 
 class ConvGRUCell(nn.Module):
@@ -118,26 +119,28 @@ class ConvGRU(nn.Module):
         # in the parameters' dtype; compute follows x's (as in JAX): the
         # kernels, biases and h0 are cast to it, so bf16 runs the bf16 kernel.
         dtype = x_seq.dtype
-        convs = (cell.read_gate_conv, cell.update_gate_conv, cell.output_conv)
-        kr, ku, kc = (conv.weight.to(dtype) for conv in convs)
-        bias = torch.cat([conv.bias for conv in convs]).to(dtype)
-        hidden_state = hidden_state.to(dtype)
+        with span("dgmr.convgru", device=x_seq):
+            with span("dgmr.derive.rollout", device=x_seq):
+                convs = (cell.read_gate_conv, cell.update_gate_conv, cell.output_conv)
+                kr, ku, kc = (conv.weight.to(dtype) for conv in convs)
+                bias = torch.cat([conv.bias for conv in convs]).to(dtype).contiguous()
+                k_x = torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]])
+                # The rollout takes the JAX layouts: NHWC activations, HWIO kernels.
+                to_hwio = lambda w: w.permute(2, 3, 1, 0).contiguous()  # noqa: E731
+                k_ru, k_c = to_hwio(torch.cat([kr[:, xc:], ku[:, xc:]])), to_hwio(kc[:, xc:])
 
-        # Input parts of all three gates as one conv, batched over every step.
-        gx = _input_part(x_seq, torch.cat([kr[:, :xc], ku[:, :xc], kc[:, :xc]]), x_static)
-        if x_static:
-            gx = gx[None]
-
-        # The rollout takes the JAX layouts: NHWC activations, HWIO kernels.
-        to_hwio = lambda w: w.permute(2, 3, 1, 0).contiguous()  # noqa: E731
-        out = convgru_rollout(
-            gx.permute(0, 1, 3, 4, 2).contiguous(),
-            hidden_state.permute(0, 2, 3, 1).contiguous(),
-            to_hwio(torch.cat([kr[:, xc:], ku[:, xc:]])),
-            to_hwio(kc[:, xc:]),
-            bias.contiguous(),
-            n_steps=n_steps,
-        )
+            # Input parts of all three gates as one conv, batched over every step.
+            gx = _input_part(x_seq, k_x, x_static)
+            if x_static:
+                gx = gx[None]
+            out = convgru_rollout(
+                gx.permute(0, 1, 3, 4, 2).contiguous(),
+                hidden_state.to(dtype).permute(0, 2, 3, 1).contiguous(),
+                k_ru,
+                k_c,
+                bias,
+                n_steps=n_steps,
+            )
         return out.permute(0, 1, 4, 2, 3)  # (T, B, C, H, W)
 
     def _train_forward(self, x_seq, hidden_state, n_steps, x_static, space=None):

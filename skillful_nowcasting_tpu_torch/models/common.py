@@ -44,6 +44,7 @@ from ..ops import (
     space_to_depth,
     upsample_nearest_2x,
 )
+from ..profiling import span
 
 
 class GBlock(nn.Module):
@@ -96,8 +97,9 @@ class GBlock(nn.Module):
         return h + sc
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        y = gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *fold_gblock_variables(self, x.dtype))
-        return y.permute(0, 3, 1, 2)
+        with span("dgmr.derive.gblock", device=x):
+            folded = fold_gblock_variables(self, x.dtype)
+        return gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *folded).permute(0, 3, 1, 2)
 
 
 class UpsampleGBlock(nn.Module):
@@ -125,10 +127,11 @@ class UpsampleGBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
-        sc = self.conv_1x1(upsample_nearest_2x(x), steps, space)
-        y = upsample_nearest_2x(torch.relu(self.bn1(x, steps)))
-        y = torch.relu(self.bn2(self.first_conv_3x3(y, steps, space), steps))
-        return self.last_conv_3x3(y, steps, space) + sc
+        with span("dgmr.upsample_gblock", device=x):
+            sc = self.conv_1x1(upsample_nearest_2x(x), steps, space)
+            y = upsample_nearest_2x(torch.relu(self.bn1(x, steps)))
+            y = torch.relu(self.bn2(self.first_conv_3x3(y, steps, space), steps))
+            return self.last_conv_3x3(y, steps, space) + sc
 
 
 class DBlock(nn.Module):
@@ -230,16 +233,17 @@ class ContextConditioningStack(nn.Module, HubMixin):
         self.conv4 = conv(oc * 2 * ic, oc * ic, 3, padding=1, spectral_norm=True)
 
     def forward(self, x: torch.Tensor, space=None) -> Tuple[torch.Tensor, ...]:
-        b, t = x.shape[:2]
-        h = space_to_depth(x, 2).transpose(0, 1).flatten(0, 1)  # (T*B, 4C, H/2, W/2)
-        states = []
-        for block, mix in ((self.d1, self.conv1), (self.d2, self.conv2),
-                           (self.d3, self.conv3), (self.d4, self.conv4)):
-            h = block(h, steps=t, space=space)
-            # (T*B, c, h, w) -> (B, c, T, h, w) -> (B, c*T, h, w): channel order (c, t).
-            s = h.unflatten(0, (t, b)).permute(1, 2, 0, 3, 4).flatten(1, 2)
-            states.append(torch.relu(mix(s, space=space)))
-        return tuple(states)
+        with span("dgmr.context", device=x):
+            b, t = x.shape[:2]
+            h = space_to_depth(x, 2).transpose(0, 1).flatten(0, 1)  # (T*B, 4C, H/2, W/2)
+            states = []
+            for block, mix in ((self.d1, self.conv1), (self.d2, self.conv2),
+                               (self.d3, self.conv3), (self.d4, self.conv4)):
+                h = block(h, steps=t, space=space)
+                # (T*B, c, h, w) -> (B, c, T, h, w) -> (B, c*T, h, w): channel order (c, t).
+                s = h.unflatten(0, (t, b)).permute(1, 2, 0, 3, 4).flatten(1, 2)
+                states.append(torch.relu(mix(s, space=space)))
+            return tuple(states)
 
 
 class LatentConditioningStack(nn.Module, HubMixin):
@@ -275,12 +279,13 @@ class LatentConditioningStack(nn.Module, HubMixin):
         z: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if z is None:
-            z = draw_latents(self.shape, 1, generator, self.conv_3x3.bias)
-        if x is not None:
-            z = z.to(device=x.device, dtype=x.dtype)
-        z = self.l_block3(self.l_block2(self.l_block1(self.conv_3x3(z))))
-        return self.l_block4(self.att_block(z))
+        with span("dgmr.latent", device=self.conv_3x3.bias):
+            if z is None:
+                z = draw_latents(self.shape, 1, generator, self.conv_3x3.bias)
+            if x is not None:
+                z = z.to(device=x.device, dtype=x.dtype)
+            z = self.l_block3(self.l_block2(self.l_block1(self.conv_3x3(z))))
+            return self.l_block4(self.att_block(z))
 
 
 DRAWS_NOT_SHARED = (

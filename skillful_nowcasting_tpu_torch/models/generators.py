@@ -23,6 +23,7 @@ from torch import nn
 from ..hub.pretrained import HubMixin
 from ..layers.convgru import ConvGRU
 from ..ops import BatchNorm2d, conv2d, depth_to_space
+from ..profiling import span
 from .common import GBlock, UpsampleGBlock, draw_latents
 
 
@@ -68,28 +69,30 @@ class Sampler(nn.Module, HubMixin):
     def forward(
         self, conditioning_states: Sequence[torch.Tensor], latent: torch.Tensor, space=None
     ) -> torch.Tensor:
-        batch = conditioning_states[0].shape[0]
-        # Quirk Q2: the latent has batch 1; repeat it over the real batch.
-        latent = latent.repeat(batch // latent.shape[0], 1, 1, 1)
-        suffixes = ("", "_2", "_3", "_4")
-        h = latent
-        # Level order: smallest scale first (quirk Q6); state 4 feeds the first GRU.
-        for i in range(4):
-            gru = getattr(self, f"convGRU{i + 1}")
-            init_state = conditioning_states[3 - i]
-            if i == 0:
-                seq = gru(h, init_state, n_steps=self.forecast_steps, x_static=True, space=space)
-            else:
-                seq = gru(h, init_state, space=space)
-            t, b = seq.shape[:2]
-            x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1), t, space)
-            x = getattr(self, f"g{i + 1}")(x, t, space)
-            x = getattr(self, f"up_g{i + 1}")(x, t, space)
-            h = x.unflatten(0, (t, b))  # (T, B, C, H, W)
-        # Output head per timestep: BN -> ReLU -> SN 1x1 -> PixelShuffle(2).
-        x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1), t)), t, space)
-        x = depth_to_space(x, 2).unflatten(0, (t, b))
-        return x.transpose(0, 1)  # (B, T, C, H, W)
+        with span("dgmr.sampler", device=latent):
+            batch = conditioning_states[0].shape[0]
+            # Quirk Q2: the latent has batch 1; repeat it over the real batch.
+            latent = latent.repeat(batch // latent.shape[0], 1, 1, 1)
+            suffixes = ("", "_2", "_3", "_4")
+            h = latent
+            # Level order: smallest scale first (quirk Q6); state 4 feeds the first GRU.
+            for i in range(4):
+                gru = getattr(self, f"convGRU{i + 1}")
+                init_state = conditioning_states[3 - i]
+                if i == 0:
+                    seq = gru(h, init_state, n_steps=self.forecast_steps, x_static=True,
+                              space=space)
+                else:
+                    seq = gru(h, init_state, space=space)
+                t, b = seq.shape[:2]
+                x = getattr(self, f"gru_conv_1x1{suffixes[i]}")(seq.flatten(0, 1), t, space)
+                x = getattr(self, f"g{i + 1}")(x, t, space)
+                x = getattr(self, f"up_g{i + 1}")(x, t, space)
+                h = x.unflatten(0, (t, b))  # (T, B, C, H, W)
+            # Output head per timestep: BN -> ReLU -> SN 1x1 -> PixelShuffle(2).
+            x = self.conv_1x1(torch.relu(self.bn(h.flatten(0, 1), t)), t, space)
+            x = depth_to_space(x, 2).unflatten(0, (t, b))
+            return x.transpose(0, 1)  # (B, T, C, H, W)
 
 
 def ensemble_forward(
@@ -141,8 +144,9 @@ class Generator(nn.Module, HubMixin):
         z: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        states = self.conditioning_stack(x)
-        return self.sampler(states, self.latent_stack(x, z=z, generator=generator))
+        with span("dgmr.forward", device=x):
+            states = self.conditioning_stack(x)
+            return self.sampler(states, self.latent_stack(x, z=z, generator=generator))
 
     def generate_ensemble(
         self,
@@ -152,4 +156,5 @@ class Generator(nn.Module, HubMixin):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Shared-context S-sample ensemble; see :func:`ensemble_forward`."""
-        return ensemble_forward(self, x, num_samples, z=z, generator=generator)
+        with span("dgmr.forward", device=x):
+            return ensemble_forward(self, x, num_samples, z=z, generator=generator)

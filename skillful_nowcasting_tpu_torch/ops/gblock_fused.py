@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..profiling import span
 from .tma import aligned16, ohwi, split_tf32
 
 
@@ -177,13 +178,14 @@ def _launch_kernels(x, k1, k2, ksc, a1, b1, a2, b2, b_out, use_sc_conv) -> torch
     prep = (lambda k: split_tf32(ohwi(k))) if f32 else ohwi  # noqa: E731
     suffix = "f32" if f32 else "bf16"
     cout = k2.shape[-1]
-    x, k1, k2, ksc, a1, b1, a2, b2, b_out = pad_channels(
-        x, k1, k2, ksc, a1, b1, a2, b2, b_out, multiple=4 if f32 else 8
-    )
+    with span("dgmr.derive.gblock_layout", device=x):
+        x, k1, k2, ksc, a1, b1, a2, b2, b_out = pad_channels(
+            x, k1, k2, ksc, a1, b1, a2, b2, b_out, multiple=4 if f32 else 8
+        )
+        k1t, k2t = prep(k1), prep(k2)
+        ksct = prep(ksc) if use_sc_conv else k2t  # not read with the identity shortcut
     n, h, w, ci = x.shape
     co = k2.shape[-1]
-    k1t, k2t = prep(k1), prep(k2)
-    ksct = prep(ksc) if use_sc_conv else k2t  # not read with the identity shortcut
     x = aligned16(x)
     mid = torch.empty((n, h, w, ci), device=x.device, dtype=x.dtype)
     out = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..profiling import span
 from .tma import aligned16, ohwi, split_tf32
 
 
@@ -181,13 +182,14 @@ def _launch_kernel(gx_seq, h0, k_ru, k_c, bias, t: int) -> torch.Tensor:
     """
     f32 = gx_seq.dtype == torch.float32
     b, h, w, c = h0.shape
-    gx_seq, h0, k_ru, k_c, bias, cp = pad_channels(
-        gx_seq, h0, k_ru, k_c, bias, multiple=16 if f32 else 8
-    )
-    if f32:
-        k_ru_t, k_c_t = split_tf32(ohwi_gates_interleaved(k_ru)), split_tf32(ohwi(k_c))
-    else:
-        k_ru_t, k_c_t = ohwi(k_ru), ohwi(k_c)
+    with span("dgmr.derive.rollout_layout", device=gx_seq):
+        gx_seq, h0, k_ru, k_c, bias, cp = pad_channels(
+            gx_seq, h0, k_ru, k_c, bias, multiple=16 if f32 else 8
+        )
+        if f32:
+            k_ru_t, k_c_t = split_tf32(ohwi_gates_interleaved(k_ru)), split_tf32(ohwi(k_c))
+        else:
+            k_ru_t, k_c_t = ohwi(k_ru), ohwi(k_c)
     gx_seq, h0, bias = aligned16(gx_seq), aligned16(h0), aligned16(bias)
     dev = gx_seq.device
     out = torch.empty((t, b, h, w, cp), device=dev, dtype=gx_seq.dtype)

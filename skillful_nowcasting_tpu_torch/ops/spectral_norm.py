@@ -25,6 +25,8 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
+from ..profiling import span
+
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     """torch.nn.functional.normalize: x / max(||x||_2, eps)."""
@@ -81,7 +83,8 @@ class SpectralNorm(nn.Module):
         self.register_buffer("_v", v)
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
-        return weight / spectral_sigma(kernel_to_weight_mat(weight), self._u, self._v)
+        with span("dgmr.derive.sn", device=weight):
+            return weight / spectral_sigma(kernel_to_weight_mat(weight), self._u, self._v)
 
     def advance(self, weight: torch.Tensor, steps: int = 1) -> torch.Tensor:
         """Train mode: ``steps`` sequential forwards' sigmas, shape ``(steps,)``.

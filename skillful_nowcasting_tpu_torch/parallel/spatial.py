@@ -14,10 +14,11 @@ stripe are cropped.
 
 ``gloo`` exchanges host tensors only, so on a ``gloo`` group the rows of a
 CUDA tensor are copied to the host, sent, and copied back; NCCL sends them
-card to card. Both exchanges count their calls, the bytes they receive and
-their host seconds (``halo_window.calls`` / ``.bytes`` / ``.seconds``, the
-same on :func:`halo_exchange`, whose backward exchanges count apart), as the
-kernels count launches.
+card to card. Both exchanges count their calls and the bytes they receive
+(``halo_window.calls`` / ``.bytes``, the same on :func:`halo_exchange`,
+whose backward exchanges count apart), as the kernels count launches, and
+their host time is in the spans ``dgmr.halo.window``, ``dgmr.halo.exchange``
+and ``dgmr.halo.backward`` (:func:`~..profiling.record`).
 
 :func:`make_spatial_forward` is the generator forward with every activation
 H-sharded: JAX leaves the halos to GSPMD, here each layer takes them
@@ -32,7 +33,6 @@ mean of the ranks' gradients over the mesh is the dense step's.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from ..models.common import DRAWS_NOT_SHARED
 from ..ops.norm import sum_over_ranks, sync_batch_norm
+from ..profiling import span
 from .mesh import Mesh, shard_batch
 
 # The generator's deepest activation (the last context state, the latent) has H / 32 rows,
@@ -54,10 +55,9 @@ def _staged(x: torch.Tensor, group) -> bool:
     return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
-def _count(fn, received, t0: float) -> None:
+def _count(fn, received) -> None:
     fn.calls += 1
     fn.bytes += sum(t.numel() * t.element_size() for t in received)
-    fn.seconds += time.perf_counter() - t0
 
 
 def _exchange(ops) -> None:
@@ -101,10 +101,10 @@ class _HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, halo: int, group) -> torch.Tensor:
         ctx.halo, ctx.group = halo, group
-        t0 = time.perf_counter()
-        top, bottom, received = _swap(x[..., :halo, :], x[..., -halo:, :], group, x.device)
-        out = torch.cat([top, x, bottom], dim=-2)
-        _count(halo_exchange, received, t0)
+        with span("dgmr.halo.exchange"):
+            top, bottom, received = _swap(x[..., :halo, :], x[..., -halo:, :], group, x.device)
+            out = torch.cat([top, x, bottom], dim=-2)
+        _count(halo_exchange, received)
         return out
 
     @staticmethod
@@ -124,15 +124,14 @@ class _HaloAdjoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grad: torch.Tensor, halo: int, group) -> torch.Tensor:
         ctx.halo, ctx.group = halo, group
-        t0 = time.perf_counter()
-        top, bottom, received = _swap(grad[..., :halo, :], grad[..., -halo:, :], group,
-                                      grad.device)
-        inner = grad[..., halo:grad.shape[-2] - halo, :]
-        rest = inner.shape[-2] - halo
-        out = inner + F.pad(top, (0, 0, 0, rest)) + F.pad(bottom, (0, 0, rest, 0))
+        with span("dgmr.halo.backward"):
+            top, bottom, received = _swap(grad[..., :halo, :], grad[..., -halo:, :], group,
+                                          grad.device)
+            inner = grad[..., halo:grad.shape[-2] - halo, :]
+            rest = inner.shape[-2] - halo
+            out = inner + F.pad(top, (0, 0, 0, rest)) + F.pad(bottom, (0, 0, rest, 0))
         halo_exchange.backward_calls += 1
         halo_exchange.backward_bytes += sum(t.numel() * t.element_size() for t in received)
-        halo_exchange.backward_seconds += time.perf_counter() - t0
         return out
 
     @staticmethod
@@ -148,8 +147,8 @@ def halo_exchange(x: torch.Tensor, halo: int, group) -> torch.Tensor:
     last rank's bottom halo are zeros, as SAME zero padding gives. Autograd
     runs through it to any order: the backward sends each halo row's gradient
     back to the rank that owns the row (counted apart, as ``.backward_calls``
-    / ``.backward_bytes`` / ``.backward_seconds``), and the backward of that
-    is the exchange again.
+    / ``.backward_bytes``, its span ``dgmr.halo.backward``), and the backward
+    of that is the exchange again.
     """
     if not 0 < halo <= x.shape[-2]:
         raise ValueError(f"a halo of {halo} rows around a stripe of {x.shape[-2]}")
@@ -170,41 +169,40 @@ def halo_window(x: torch.Tensor, rows: int, group) -> tuple:
     exceeds a stripe the rows come from as many ranks as hold them, all in
     one ``batch_isend_irecv``.
     """
-    t0 = time.perf_counter()
     n, me = dist.get_world_size(group), dist.get_rank(group)
     each = x.shape[-2]
     lo, hi = _window(me, each, n, rows)
     staged = _staged(x, group)
     ops, above, below = [], [], []
-    for j in range(n):
-        if j == me:
-            continue
-        peer = dist.get_global_rank(group, j)
-        a, b = max(lo, j * each), min(hi, (j + 1) * each)  # what I take from rank j
-        if a < b:
-            buf = x.new_empty((*x.shape[:-2], b - a, x.shape[-1]),
-                              device="cpu" if staged else x.device)
-            ops.append(dist.P2POp(dist.irecv, buf, peer, group))
-            (above if j < me else below).append(buf)
-        j_lo, j_hi = _window(j, each, n, rows)  # what rank j takes from me
-        a, b = max(j_lo, me * each) - me * each, min(j_hi, (me + 1) * each) - me * each
-        if a < b:
-            mine = x[..., a:b, :]
-            mine = mine.to("cpu").contiguous() if staged else mine.contiguous()
-            ops.append(dist.P2POp(dist.isend, mine, peer, group))
-    _exchange(ops)
-    xw = torch.cat([*(t.to(x.device) for t in above), x, *(t.to(x.device) for t in below)],
-                   dim=-2)
-    _count(halo_window, above + below, t0)
+    with span("dgmr.halo.window"):
+        for j in range(n):
+            if j == me:
+                continue
+            peer = dist.get_global_rank(group, j)
+            a, b = max(lo, j * each), min(hi, (j + 1) * each)  # what I take from rank j
+            if a < b:
+                buf = x.new_empty((*x.shape[:-2], b - a, x.shape[-1]),
+                                  device="cpu" if staged else x.device)
+                ops.append(dist.P2POp(dist.irecv, buf, peer, group))
+                (above if j < me else below).append(buf)
+            j_lo, j_hi = _window(j, each, n, rows)  # what rank j takes from me
+            a, b = max(j_lo, me * each) - me * each, min(j_hi, (me + 1) * each) - me * each
+            if a < b:
+                mine = x[..., a:b, :]
+                mine = mine.to("cpu").contiguous() if staged else mine.contiguous()
+                ops.append(dist.P2POp(dist.isend, mine, peer, group))
+        _exchange(ops)
+        xw = torch.cat([*(t.to(x.device) for t in above), x, *(t.to(x.device) for t in below)],
+                       dim=-2)
+    _count(halo_window, above + below)
     return xw, me * each - lo, hi - (me + 1) * each
 
 
 def reset_halo_counters() -> None:
     """Set every exchange counter, forward and backward, to 0 (they count since the last reset)."""
     for fn in (halo_exchange, halo_window):
-        fn.calls, fn.bytes, fn.seconds = 0, 0, 0.0
+        fn.calls, fn.bytes = 0, 0
     halo_exchange.backward_calls, halo_exchange.backward_bytes = 0, 0
-    halo_exchange.backward_seconds = 0.0
 
 
 reset_halo_counters()

@@ -363,6 +363,37 @@ def test_tiled_nowcast_device_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(tiled_nowcast_device(model, frames, **kwargs), got)
 
 
+def test_device_spans_time_the_stream_that_carries_their_work(dev):
+    """On the card every span given a tensor gets stream time, from events on its current stream."""
+    from skillful_nowcasting_tpu_torch import profiling
+
+    model = random_fill(DGMR(**TINY, device="cpu").eval(), torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    x = torch.rand((1, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1)).to(dev)
+    a = torch.randn((1024, 1024), device=dev)
+    side = torch.cuda.Stream(dev)
+    with profiling.record(device=True) as log:
+        with torch.no_grad():
+            model(x)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), profiling.span("side", device=a):
+            assert profiling._stream(a) == side
+            for _ in range(8):
+                a = a @ a / 32
+    torch.cuda.current_stream(dev).wait_stream(side)
+    spans = log.spans()
+    names = [s["name"] for s in spans]
+    # On the card each GBlock and rollout derives its weights, then the kernel's layout of them.
+    assert names.count("dgmr.derive.gblock") == names.count("dgmr.derive.rollout") == 4
+    assert names.count("dgmr.derive.gblock_layout") == names.count("dgmr.derive.rollout_layout") == 4
+    assert all(s["stream_ms"] is not None and s["stream_ms"] >= 0 for s in spans)
+    forward = next(s for s in spans if s["name"] == "dgmr.forward")
+    sampler = next(s for s in spans if s["name"] == "dgmr.sampler")
+    assert 0 < sampler["stream_ms"] <= forward["stream_ms"]
+    assert next(s for s in spans if s["name"] == "side")["stream_ms"] > 0
+    assert profiling._stream(a) == torch.cuda.current_stream(dev)
+
+
 def test_evaluate_nowcast_on_card_matches_cpu(dev):
     model = random_fill(DGMR(**TINY, device="cpu").eval(), torch.Generator().manual_seed(0))
     rng = np.random.default_rng(8)

@@ -179,4 +179,7 @@ def test_spatial_forward_is_sharded(ranks, mesh):
                                        H // n_space, H)
         assert int(got["window_calls"]) == WINDOW_CALLS
         assert int(got["exchange_calls"]) == EXCHANGE_CALLS
+        # Each exchange's host time is one span of its own.
+        assert int(got["window_spans"]) == WINDOW_CALLS
+        assert int(got["exchange_spans"]) == EXCHANGE_CALLS
         assert int(got["window_bytes"]) > 0 and int(got["exchange_bytes"]) > 0

@@ -32,7 +32,7 @@ import torch.distributed as dist
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from skillful_nowcasting_tpu_torch import DGMR  # noqa: E402
+from skillful_nowcasting_tpu_torch import DGMR, profiling  # noqa: E402
 from skillful_nowcasting_tpu_torch.layers.convgru import ConvGRU  # noqa: E402
 from skillful_nowcasting_tpu_torch.models.common import GBlock  # noqa: E402
 from skillful_nowcasting_tpu_torch.parallel import (  # noqa: E402
@@ -96,9 +96,13 @@ def forward_mode(model, inputs: dict, n_data: int, n_space: int) -> dict:
     for fn in (halo_window, halo_exchange):
         fn.calls, fn.bytes = 0, 0
     with torch.no_grad():
-        y = fwd(x, z=z)
+        with profiling.record() as log:
+            y = fwd(x, z=z)
+        names = [s["name"] for s in log.spans()]
         counts = {"window_calls": halo_window.calls, "window_bytes": halo_window.bytes,
-                  "exchange_calls": halo_exchange.calls, "exchange_bytes": halo_exchange.bytes}
+                  "exchange_calls": halo_exchange.calls, "exchange_bytes": halo_exchange.bytes,
+                  "window_spans": names.count("dgmr.halo.window"),
+                  "exchange_spans": names.count("dgmr.halo.exchange")}
         mine = shard_batch(x, mesh)
         dense = model(mine, z=z)
         seeded = gather_space(fwd(x, generator=torch.Generator().manual_seed(5)), mesh)
