@@ -21,14 +21,18 @@ the top kernels by device time) and prints no result line.
    3xTF32 for f32 and bf16 for bf16, and bytes at the memory peak). Beside
    each GBlock shape, a conv yardstick: cuDNN's ``F.conv2d`` in the shape's
    dtype (f32 with TF32 off; channels_last) for the block's two 3x3 convs (a
-   diagnostic; the port never calls it). Each f32 kernel's summed time at
+   diagnostic; the port never calls it). The four UpsampleGBlock levels
+   (``dgmr::upsample_gblock_fused``, the GBlock kernels' upsampling variant)
+   at both batches and in both dtypes, each beside the cuDNN path the eager
+   block took (nearest upsample, the two 3x3 convs and the 1x1 shortcut by
+   ``F.conv2d``, channels_last). Each f32 kernel's summed time at
    each batch is printed beside its time before the Hopper redesign (the
    ``mma.sync`` kernels, ``PERF.md``).
 4. The slice at full width: ``DGMR()`` (on the card by default; 256x256, 18
    steps, latent 768, context 384, 6 samples) with seeded random weights
-   answers 3 requests through ``make_generate`` from a CPU batch; both
+   answers 3 requests through ``make_generate`` from a CPU batch; the
    kernels' launch counters must rise by the count the path implies (one
-   rollout launch per ConvGRU level, two per GBlock).
+   rollout launch per ConvGRU level, two per GBlock and per UpsampleGBlock).
 5. End-to-end parity: one B=1 forward with a fixed latent on the card
    (kernels) and on the CPU (plain versions): max-abs <= 1e-3.
 6. Where the time goes: one per-sample request under
@@ -311,9 +315,23 @@ def gblock_work(n: int, hw, cin: int, cout: int, elem: int = 4):
     return flops, elem * values + 4.0 * (4 * cin + cout)
 
 
+def upsample_gblock_work(n: int, hw: int, cin: int, cout: int, elem: int = 4):
+    """FLOPs and bytes of one eval UpsampleGBlock on an ``hw`` x ``hw`` input.
+
+    The GBlock's work with the 1x1 shortcut at the output's side ``2 hw``,
+    but x is read at its own size.
+    """
+    m = n * (2 * hw) ** 2
+    flops = 2.0 * m * (9 * cin * (cin + cout) + cin * cout)
+    values = n * hw * hw * cin + m * cout + 9 * cin * (cin + cout) + cin * cout
+    return flops, elem * values + 4.0 * (4 * cin + cout)
+
+
 KERNEL_FUNCTIONS = ("gru_rollout_kernel", "gblock_conv1_kernel", "gblock_conv2_kernel",
                     "gru_rollout_bf16_kernel", "gblock_conv1_bf16_kernel",
-                    "gblock_conv2_bf16_kernel")
+                    "gblock_conv2_bf16_kernel", "upsample_gblock_a_f32_kernel",
+                    "upsample_gblock_b_f32_kernel", "upsample_gblock_a_bf16_kernel",
+                    "upsample_gblock_b_bf16_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")  # wgmma, TMA load, mma.sync
 # The f32 kernels' summed phase-3 times before their Hopper redesign (3xTF32 mma.sync fed by
 # cp.async; PERF.md section 6, the largest of the runs of that design), ms, by bucket.
@@ -1484,6 +1502,7 @@ def bf16_full_width(torch, dev, model, card, counters):
     import numpy as np
 
     from skillful_nowcasting_tpu_torch.inference import make_generate, tiled_nowcast_device
+    from skillful_nowcasting_tpu_torch.ops import upsample_gblock_fused
 
     batch = 2
     s_n, fs, size = model.num_samples, model.forecast_steps, model.output_shape
@@ -1491,6 +1510,7 @@ def bf16_full_width(torch, dev, model, card, counters):
     generate = make_generate(model)
     for counter in counters:
         counter.launches = 0
+    upsample_gblock_fused.launches = upsample_gblock_fused.launches_bf16 = 0
     seconds = []
     for i in range(REQUESTS):
         t0 = time.perf_counter()
@@ -1502,6 +1522,9 @@ def bf16_full_width(torch, dev, model, card, counters):
             fail(f"bf16 request {i}: output {tuple(out.shape)} {out.dtype}, or not finite")
     launches = launch_counts(counters)
     expected = expected_launches(REQUESTS * s_n, bf16=True)
+    launches["upsample_gblock_fused"] = upsample_gblock_fused.launches
+    launches["upsample_gblock_fused_bf16"] = upsample_gblock_fused.launches_bf16
+    expected.update(upsample_gblock_fused=0, upsample_gblock_fused_bf16=8 * REQUESTS * s_n)
     print(f"bf16 launches: {launches}, expected {expected}")
     if launches != expected:
         fail(f"the bf16 path's kernel launches {launches} differ from {expected}")
@@ -2852,6 +2875,8 @@ def main() -> None:
             convgru_rollout_reference,
             gblock_fused,
             gblock_fused_reference,
+            upsample_gblock_fused,
+            upsample_gblock_fused_reference,
         )
         from skillful_nowcasting_tpu_torch.utils import random_fill
     except ImportError as e:
@@ -2986,6 +3011,29 @@ def main() -> None:
                       f"channels_last, the block's two 3x3 convs, no affine or shortcut) "
                       f"{yard:.4f} ms")
                 del args
+            # The UpsampleGBlocks: x at half the output's side, Cout = Cin / 2.
+            for hw, cin in ((8, 768), (16, 384), (32, 192), (64, 96)):
+                args = gblock_case(n, hw, hw, cin, cin // 2, dtype)[:-1]
+                compare(f"upsample_gblock_fused{suffix}", upsample_gblock_fused,
+                        upsample_gblock_fused_reference, args,
+                        f"x={tuple(args[0].shape)} cout={cin // 2}", reps=reps,
+                        work=upsample_gblock_work(n, hw, cin, cin // 2, elem), kind=kind,
+                        bucket=bucket)
+                xc = args[0].permute(0, 3, 1, 2)
+                w1, w2, wsc = (k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                               for k in args[1:4])
+                conv = torch.nn.functional.conv2d
+
+                def eager():
+                    up = torch.nn.functional.interpolate(xc, scale_factor=2, mode="nearest")
+                    return conv(conv(up, w1, padding=1), w2, padding=1) + conv(up, wsc)
+
+                yard = time_ms(torch, eager, reps)
+                print(f"upsample_gblock_fused{suffix} x={tuple(args[0].shape)} cout={cin // 2}: "
+                      f"cuDNN {kind}{' (TF32 off)' if kind == 'f32' else ''} of the eager block's "
+                      f"upsample, two 3x3 convs and 1x1 shortcut (channels_last, no affine) "
+                      f"{yard:.4f} ms")
+                del args
     f32_against_before(results, ("batch_2", f"tile_batch_{TILE_BATCH}"))
     torch.cuda.empty_cache()
 
@@ -3003,6 +3051,7 @@ def main() -> None:
                 Counter(gblock_fused, "launches_bf16", "gblock_fused_bf16"))
     for counter in counters:
         counter.launches = 0
+    upsample_gblock_fused.launches = upsample_gblock_fused.launches_bf16 = 0
     seconds = []
     for i in range(REQUESTS):
         t0 = time.perf_counter()
@@ -3018,6 +3067,9 @@ def main() -> None:
     launches = launch_counts(counters)
     forwards = REQUESTS * s_n
     expected = expected_launches(forwards)
+    launches["upsample_gblock_fused"] = upsample_gblock_fused.launches
+    launches["upsample_gblock_fused_bf16"] = upsample_gblock_fused.launches_bf16
+    expected.update(upsample_gblock_fused=8 * forwards, upsample_gblock_fused_bf16=0)
     print(f"launches: {launches}, expected {expected}")
     if launches != expected:
         fail(f"the main path's kernel launches {launches} differ from {expected}")
@@ -3146,9 +3198,12 @@ def main() -> None:
     gblock = ("skillful_nowcasting_tpu_torch/csrc/gblock_fused.cu",
               "skillful_nowcasting_tpu/ops/pallas_gblock.py:66")
     # Each variant's main path: the f32 requests of phase 4, the bf16 requests of phase 15.
+    # The UpsampleGBlock has no Pallas kernel: its op runs the GBlock kernel's bodies.
     main_path = {"convgru_rollout": (gru, launches), "gblock_fused": (gblock, launches),
+                 "upsample_gblock_fused": (gblock, launches),
                  "convgru_rollout_bf16": (gru, bf16_launches),
-                 "gblock_fused_bf16": (gblock, bf16_launches)}
+                 "gblock_fused_bf16": (gblock, bf16_launches),
+                 "upsample_gblock_fused_bf16": (gblock, bf16_launches)}
     by_path = {"serve": launches, **by_path, "serve_bf16": bf16_launches}
     kernels = []
     for name, ((src, rep), counts) in main_path.items():
@@ -3161,7 +3216,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], **r,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -47,6 +47,10 @@ SIGNATURES = {
     "gru_rollout_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "gblock_conv1_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "gblock_conv2_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    "upsample_gblock_a_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "upsample_gblock_b_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "upsample_gblock_a_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "upsample_gblock_b_bf16": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

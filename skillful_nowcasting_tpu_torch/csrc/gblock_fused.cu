@@ -71,6 +71,18 @@
 // directly (no per-group round-to-nearest pass as in f32): their truncation
 // over K = 6912 stays far below one bf16 ulp of the output, the tolerance.
 
+//
+// The upsampling variant (upsample_gblock_{a,b}_{f32,bf16}_kernel, the same
+// bodies with UP set) runs an eval UpsampleGBlock: in eval, nearest
+// upsampling commutes with the per-pixel affine, the ReLU and the 1x1
+// shortcut, so the block is a GBlock with the 1x1 shortcut on upsample(x).
+// x stays at half resolution in device memory: conv1's halo boxes and the
+// shortcut's are 6x6 boxes of x (halo_conv.cuh: kUpHalo), gathered through
+// the upsample (load_a_up: upsampled row r reads row r / 2), and the affine
+// runs once on each landed low-resolution value. mid and out are at full
+// resolution. With UP unset the bodies compile to the GBlock kernels as
+// before.
+
 #include "halo_conv.cuh"
 
 namespace dgmr {
@@ -107,14 +119,18 @@ __host__ __device__ inline int gb_const_bytes(bool conv1, int cin, int nout, int
 // place (every tap reads it), by the consumer warpgroup's 128 threads, 16
 // bytes at a time; in-image pixels only (zero-filled ones stay 0: SAME
 // padding applies after the affine). Pixel p of the box holds logical chunk
-// j of its 32 channels (4 each) at chunk j ^ (p % 8).
+// j of its 32 channels (4 each) at chunk j ^ (p % 8). The box is SIDE wide,
+// its pixel (1, 1) at (y0, x0) of x's (h, w): kHalo, or kUpHalo for the
+// upsampling variant's low-resolution x, each value transformed once
+// whichever of its four upsampled copies the taps read.
+template <int SIDE>
 __device__ __forceinline__ void affine_box_f32(uint8_t* box, const float* scale,
                                                const float* shift, int kc, int n, int y0, int x0,
-                                               const GBlockF32Args& p, int tid) {
-  for (int idx = tid; idx < kHalo * kHalo * 8; idx += 128) {
+                                               int h, int w, const GBlockF32Args& p, int tid) {
+  for (int idx = tid; idx < SIDE * SIDE * 8; idx += 128) {
     const int px = idx >> 3;
-    const int yy = y0 - 1 + px / kHalo, xx = x0 - 1 + px % kHalo;
-    if (n >= p.N || yy < 0 || yy >= p.H || xx < 0 || xx >= p.W) continue;
+    const int yy = y0 - 1 + px / SIDE, xx = x0 - 1 + px % SIDE;
+    if (n >= p.N || yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
     const int c = kc * kChunkF32 + 4 * ((idx & 7) ^ (px & 7));
     float4* q = reinterpret_cast<float4*>(box + idx * 16);
     float4 v = *q;
@@ -128,7 +144,10 @@ __device__ __forceinline__ void affine_box_f32(uint8_t* box, const float* scale,
 
 // One f32 launch of conv1 (CONV1) or conv2. Maps: a (x or mid, halo boxes),
 // w (k1 or k2, split OHWI pairs), and for conv2's shortcut conv x and ksc.
-template <int BN, bool CONV1>
+// UP, the upsampling variant: x is at half of (p.H, p.W), read through the
+// 2x upsample (conv1's boxes and the shortcut's are low-resolution ones), and
+// the shortcut is the 1x1 conv.
+template <int BN, bool CONV1, bool UP = false>
 __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const CUtensorMap& w_map,
                                                 const CUtensorMap& x_map,
                                                 const CUtensorMap& sc_map,
@@ -162,6 +181,7 @@ __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const 
   const int g3 = 9 * nkc;                                       // 3x3 groups
   const int groups = g3 + (!CONV1 && p.use_sc_conv ? nkc : 0);  // + the 1x1 shortcut's
   const int wg = threadIdx.x / 128;
+  const auto low_res = [](const F32Group& g) { return UP && (CONV1 || g.sc); };
 
   if (wg == kConsumers) {  // producer warpgroup; one thread issues every copy
     setmaxnreg_dec<40>();
@@ -175,13 +195,15 @@ __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const 
         pipe.produce<BN>(
             a, b, 0, groups, g3, 0,
             [&](int w, uint8_t* dst, uint64_t* bar, const F32Group& g) {
-              tma_load_4d(dst, g.sc ? &x_map : &a_map, bar, g.kc * kChunkF32, ux[w] - 1,
-                          uy[w] - 1, un[w]);
+              const int up = low_res(g) ? 1 : 0;
+              tma_load_4d(dst, g.sc ? &x_map : &a_map, bar, g.kc * kChunkF32,
+                          (ux[w] >> up) - 1, (uy[w] >> up) - 1, un[w]);
             },
             [&](uint8_t* dst, uint64_t* bar, const F32Group& g) {
               tma_load_4d(dst, g.sc ? &sc_map : &w_map, bar, g.kc * kChunkF32, g.sc ? 0 : g.tap,
                           n0, 0);
-            });
+            },
+            low_res);
       }
     }
   } else {  // consumer warpgroup wg: patch 2 mp + wg of every tile
@@ -196,13 +218,18 @@ __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const 
       const int n0 = (tile - mp * n_tiles) * BN;
       int n, y0, x0;
       pat.at(kConsumers * mp + wg, n, y0, x0);
-      pipe.consume<BN>(acc, a, b, freed, wg, al, lane, 0, groups, g3,
-                       [&](uint8_t* box, const F32Group& g) {
-                         if (CONV1)
-                           affine_box_f32(box, scale, shift, g.kc, n, y0, x0, p,
-                                          threadIdx.x % 128);
-                         return CONV1;
-                       });
+      pipe.consume<BN>(
+          acc, a, b, freed, wg, al, lane, 0, groups, g3,
+          [&](uint8_t* box, const F32Group& g) {
+            if (CONV1 && UP)
+              affine_box_f32<kUpHalo>(box, scale, shift, g.kc, n, y0 >> 1, x0 >> 1, p.H >> 1,
+                                      p.W >> 1, p, threadIdx.x % 128);
+            else if (CONV1)
+              affine_box_f32<kHalo>(box, scale, shift, g.kc, n, y0, x0, p.H, p.W, p,
+                                    threadIdx.x % 128);
+            return CONV1;
+          },
+          low_res);
 
       // Epilogue: thread rows (2 warp + half, lane / 4) of the patch, columns
       // n0 + 8 j + 2 (lane % 4) and + 1.
@@ -221,7 +248,7 @@ __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const 
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += 8) {
         float2 xv[8][2];
-        if (!CONV1 && !p.use_sc_conv) {  // identity: Cin == Nout
+        if (!CONV1 && !UP && !p.use_sc_conv) {  // identity: Cin == Nout
 #pragma unroll
           for (int jj = 0; jj < 8 && j0 + jj < BN / 8; ++jj) {
             const int col = n0 + 8 * (j0 + jj) + 2 * (lane % 4);
@@ -244,7 +271,7 @@ __device__ __forceinline__ void gblock_f32_body(const CUtensorMap& a_map, const 
               v0 = fmaxf(fmaf(emul[col], v0, eadd[col]), 0.f);
               v1 = fmaxf(fmaf(emul[col + 1], v1, eadd[col + 1]), 0.f);
             } else {
-              if (!p.use_sc_conv) {
+              if (!UP && !p.use_sc_conv) {
                 v0 += xv[jj][half].x;
                 v1 += xv[jj][half].y;
               }
@@ -275,6 +302,25 @@ __global__ void __launch_bounds__(kConvThreads, 1)
   gblock_f32_body<BN, false>(mid_map, k2_map, x_map, ksc_map, p);
 }
 
+// The upsampling variant's conv1 (a) and conv2 (b): x_map's boxes are low-resolution ones.
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads, 1)
+    upsample_gblock_a_f32_kernel(const __grid_constant__ CUtensorMap x_map,
+                                 const __grid_constant__ CUtensorMap k1_map,
+                                 const GBlockF32Args p) {
+  gblock_f32_body<BN, true, true>(x_map, k1_map, x_map, k1_map, p);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads, 1)
+    upsample_gblock_b_f32_kernel(const __grid_constant__ CUtensorMap mid_map,
+                                 const __grid_constant__ CUtensorMap k2_map,
+                                 const __grid_constant__ CUtensorMap x_map,
+                                 const __grid_constant__ CUtensorMap ksc_map,
+                                 const GBlockF32Args p) {
+  gblock_f32_body<BN, false, true>(mid_map, k2_map, x_map, ksc_map, p);
+}
+
 // The operands of one launch: the halo-boxed activation a (x or mid) and the
 // OHWI weights w (k1 or k2); conv2's shortcut conv also x and ksc. f32
 // weights are split pairs (2, Nout, taps, Cin).
@@ -293,13 +339,15 @@ struct GBlockOperands {
 // warpgroup's 128 threads, 16 bytes at a time; in-image pixels only
 // (zero-filled ones stay 0: SAME padding applies after the affine). Pixel p
 // of the box holds logical chunk j of its 64 channels at chunk j ^ (p % 8).
+// SIDE, (y0, x0) and (h, w) as in affine_box_f32.
+template <int SIDE>
 __device__ __forceinline__ void affine_box(uint8_t* box, const float* scale, const float* shift,
-                                           int kc, int n, int y0, int x0, const GBlockBfArgs& p,
-                                           int tid) {
-  for (int idx = tid; idx < kHalo * kHalo * 8; idx += 128) {
+                                           int kc, int n, int y0, int x0, int h, int w,
+                                           const GBlockBfArgs& p, int tid) {
+  for (int idx = tid; idx < SIDE * SIDE * 8; idx += 128) {
     const int px = idx >> 3;
-    const int yy = y0 - 1 + px / kHalo, xx = x0 - 1 + px % kHalo;
-    if (n >= p.N || yy < 0 || yy >= p.H || xx < 0 || xx >= p.W) continue;
+    const int yy = y0 - 1 + px / SIDE, xx = x0 - 1 + px % SIDE;
+    if (n >= p.N || yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
     const int c = kc * kChunk + 8 * ((idx & 7) ^ (px & 7));
     uint4* q = reinterpret_cast<uint4*>(box + idx * 16);
     uint32_t v[4] = {q->x, q->y, q->z, q->w};
@@ -314,8 +362,9 @@ __device__ __forceinline__ void affine_box(uint8_t* box, const float* scale, con
 }
 
 // One launch of conv1 (CONV1) or conv2. Maps: a (x or mid, halo boxes), w
-// (k1 or k2, OHWI), and for conv2's shortcut conv x (halo boxes) and ksc.
-template <int BN, bool CONV1>
+// (k1 or k2, OHWI), and for conv2's shortcut conv x (halo boxes) and ksc. UP
+// as in gblock_f32_body.
+template <int BN, bool CONV1, bool UP = false>
 __device__ __forceinline__ void gblock_bf16_body(const CUtensorMap& a_map, const CUtensorMap& w_map,
                                                  const CUtensorMap& x_map,
                                                  const CUtensorMap& sc_map,
@@ -381,12 +430,13 @@ __device__ __forceinline__ void gblock_bf16_body(const CUtensorMap& a_map, const
           const int kc = sc ? g - g3 : g / 9;
           const int tap = sc ? 0 : g % 9;
           if (sc || tap == 0) {  // a new chunk: one halo box per consumer
+            const int up = UP && (CONV1 || sc) ? 1 : 0;  // a low-resolution box
             for (int w = 0; w < kConsumers; ++w) {
               const int i = w * kAStages + a.slot;
               mbar_wait(&a_empty[i], a.phase ^ 1);
-              mbar_expect_tx(&a_full[i], kBoxBytes);
+              mbar_expect_tx(&a_full[i], up ? kUpBoxBytes : kBoxBytes);
               tma_load_4d(boxes + i * kBoxSlot, sc ? &x_map : &a_map, &a_full[i], kc * kChunk,
-                          ux[w] - 1, uy[w] - 1, un[w]);
+                          (ux[w] >> up) - 1, (uy[w] >> up) - 1, un[w]);
             }
             a.next(kAStages);
           }
@@ -420,13 +470,21 @@ __device__ __forceinline__ void gblock_bf16_body(const CUtensorMap& a_map, const
         if (sc || tap == 0) {
           mbar_wait(&a_full[i], a.phase);
           if (CONV1) {
-            affine_box(boxes + i * kBoxSlot, scale, shift, kc, n, y0, x0, p, threadIdx.x % 128);
+            if (UP)
+              affine_box<kUpHalo>(boxes + i * kBoxSlot, scale, shift, kc, n, y0 >> 1, x0 >> 1,
+                                  p.H >> 1, p.W >> 1, p, threadIdx.x % 128);
+            else
+              affine_box<kHalo>(boxes + i * kBoxSlot, scale, shift, kc, n, y0, x0, p.H, p.W, p,
+                                threadIdx.x % 128);
             fence_proxy_async_shared();  // before the slot's next TMA fill
             named_barrier(1 + wg, 128);  // the whole box is done before any gather
           }
         }
         mbar_wait(&b_full[b.slot], b.phase);
-        load_a(fr, boxes_u + i * kBoxSlot, al, tap);
+        if (UP && (CONV1 || sc))
+          load_a_up(fr, boxes_u + i * kBoxSlot, al, tap);
+        else
+          load_a(fr, boxes_u + i * kBoxSlot, al, tap);
         if (sc || tap == 8) {  // the chunk's last gather: its box is free
           __syncwarp();
           if (lane == 0) mbar_arrive(&a_empty[i]);
@@ -459,7 +517,7 @@ __device__ __forceinline__ void gblock_bf16_body(const CUtensorMap& a_map, const
 #pragma unroll
       for (int j0 = 0; j0 < BN / 8; j0 += 8) {
         uint32_t xv[8][2];
-        if (!CONV1 && !p.use_sc_conv) {  // identity: Cin == Nout
+        if (!CONV1 && !UP && !p.use_sc_conv) {  // identity: Cin == Nout
 #pragma unroll
           for (int jj = 0; jj < 8 && j0 + jj < BN / 8; ++jj) {
             const int col = n0 + 8 * (j0 + jj) + 2 * (lane % 4);
@@ -482,7 +540,7 @@ __device__ __forceinline__ void gblock_bf16_body(const CUtensorMap& a_map, const
               v0 = fmaxf(fmaf(emul[col], v0, eadd[col]), 0.f);
               v1 = fmaxf(fmaf(emul[col + 1], v1, eadd[col + 1]), 0.f);
             } else {
-              if (!p.use_sc_conv) {
+              if (!UP && !p.use_sc_conv) {
                 v0 += bf16_lo(xv[jj][half]);
                 v1 += bf16_hi(xv[jj][half]);
               }
@@ -513,6 +571,24 @@ __global__ void __launch_bounds__(kConvThreads, 1)
   gblock_bf16_body<BN, false>(mid_map, k2_map, x_map, ksc_map, p);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads, 1)
+    upsample_gblock_a_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                                  const __grid_constant__ CUtensorMap k1_map,
+                                  const GBlockBfArgs p) {
+  gblock_bf16_body<BN, true, true>(x_map, k1_map, x_map, k1_map, p);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads, 1)
+    upsample_gblock_b_bf16_kernel(const __grid_constant__ CUtensorMap mid_map,
+                                  const __grid_constant__ CUtensorMap k2_map,
+                                  const __grid_constant__ CUtensorMap x_map,
+                                  const __grid_constant__ CUtensorMap ksc_map,
+                                  const GBlockBfArgs p) {
+  gblock_bf16_body<BN, false, true>(mid_map, k2_map, x_map, ksc_map, p);
+}
+
 // ---------------------------------------------------------------------------
 // Launch, both dtypes.
 
@@ -535,8 +611,26 @@ inline int pick_bn(const int (&widths)[K], int patches, int nout) {
   return best;
 }
 
+// The kernel of one launch: conv1 or conv2, of the GBlock or of its
+// upsampling variant (up), for T's dtype.
 template <int BN, class T>
-cudaError_t launch_gb(bool conv1, const GBlockOperands& o, GBlockArgs<T> p,
+auto conv1_kernel(bool up) {
+  if constexpr (sizeof(T) == 4)
+    return up ? upsample_gblock_a_f32_kernel<BN> : gblock_conv1_kernel<BN>;
+  else
+    return up ? upsample_gblock_a_bf16_kernel<BN> : gblock_conv1_bf16_kernel<BN>;
+}
+
+template <int BN, class T>
+auto conv2_kernel(bool up) {
+  if constexpr (sizeof(T) == 4)
+    return up ? upsample_gblock_b_f32_kernel<BN> : gblock_conv2_kernel<BN>;
+  else
+    return up ? upsample_gblock_b_bf16_kernel<BN> : gblock_conv2_bf16_kernel<BN>;
+}
+
+template <int BN, class T>
+cudaError_t launch_gb(bool conv1, bool up, const GBlockOperands& o, GBlockArgs<T> p,
                       cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr CUtensorMapDataType type =
@@ -545,14 +639,20 @@ cudaError_t launch_gb(bool conv1, const GBlockOperands& o, GBlockArgs<T> p,
     return kF32 ? weight_pair_map(map, w, p.Nout, taps, p.Cin, BN)
                 : weight_map(map, w, p.Nout, taps, p.Cin, BN);
   };
+  // x's map: at the output's resolution, or at half of it with low-resolution boxes.
+  auto x_map = [&](CUtensorMap* map, const void* x) {
+    return up ? halo_map(map, type, x, p.N, p.H / 2, p.W / 2, p.Cin, kUpHalo)
+              : halo_map(map, type, x, p.N, p.H, p.W, p.Cin);
+  };
   CUtensorMap maps[4];
-  cudaError_t err = halo_map(&maps[0], type, o.a, p.N, p.H, p.W, p.Cin);
+  cudaError_t err =
+      conv1 ? x_map(&maps[0], o.a) : halo_map(&maps[0], type, o.a, p.N, p.H, p.W, p.Cin);
   if (err == cudaSuccess) err = w_map(&maps[1], o.w, 9);
   if (err != cudaSuccess) return err;
   maps[2] = maps[0];
   maps[3] = maps[1];
   if (!conv1 && p.use_sc_conv) {
-    err = halo_map(&maps[2], type, o.x, p.N, p.H, p.W, p.Cin);
+    err = x_map(&maps[2], o.x);
     if (err == cudaSuccess) err = w_map(&maps[3], o.ksc, 1);
     if (err != cudaSuccess) return err;
   }
@@ -567,18 +667,12 @@ cudaError_t launch_gb(bool conv1, const GBlockOperands& o, GBlockArgs<T> p,
   if (sms <= 0) return cudaErrorInvalidDevice;
   const dim3 grid(tiles < sms ? tiles : sms);
   if (conv1) {
-    const auto kernel = [] {
-      if constexpr (kF32) return gblock_conv1_kernel<BN>;
-      else return gblock_conv1_bf16_kernel<BN>;
-    }();
+    const auto kernel = conv1_kernel<BN, T>(up);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kConvThreads, smem, stream>>>(maps[0], maps[1], p);
   } else {
-    const auto kernel = [] {
-      if constexpr (kF32) return gblock_conv2_kernel<BN>;
-      else return gblock_conv2_bf16_kernel<BN>;
-    }();
+    const auto kernel = conv2_kernel<BN, T>(up);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kConvThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
@@ -588,21 +682,24 @@ cudaError_t launch_gb(bool conv1, const GBlockOperands& o, GBlockArgs<T> p,
 
 // One launch at the width pick_bn takes from the dtype's widths: 128, 96 or
 // 64 columns for f32 (whose group accumulator doubles the registers a column
-// costs), 256, 192 or 96 for bf16.
+// costs), 256, 192 or 96 for bf16. up: the upsampling variant (p.H and p.W
+// even, the 1x1 shortcut).
 template <class T>
-cudaError_t launch(bool conv1, const GBlockOperands& o, const GBlockArgs<T>& p,
+cudaError_t launch(bool conv1, bool up, const GBlockOperands& o, const GBlockArgs<T>& p,
                    cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int align = kF32 ? 4 : 8;  // channels of TMA's 16-byte strides
   if (p.Cin % align != 0 || p.Nout % align != 0) return cudaErrorInvalidValue;
+  if (up && (p.H % 2 != 0 || p.W % 2 != 0 || (!conv1 && !p.use_sc_conv)))
+    return cudaErrorInvalidValue;
   if (!aligned16(o.a) || !aligned16(o.w) || !aligned16(o.x) || !aligned16(o.ksc) ||
       !aligned16(p.dst))
     return cudaErrorMisalignedAddress;
   constexpr int widths[3] = {kF32 ? 128 : 256, kF32 ? 96 : 192, kF32 ? 64 : 96};
   switch (pick_bn(widths, Patches(p.N, p.H, p.W).count(), p.Nout)) {
-    case widths[0]: return launch_gb<widths[0]>(conv1, o, p, stream);
-    case widths[1]: return launch_gb<widths[1]>(conv1, o, p, stream);
-    default: return launch_gb<widths[2]>(conv1, o, p, stream);
+    case widths[0]: return launch_gb<widths[0]>(conv1, up, o, p, stream);
+    case widths[1]: return launch_gb<widths[1]>(conv1, up, o, p, stream);
+    default: return launch_gb<widths[2]>(conv1, up, o, p, stream);
   }
 }
 
@@ -629,7 +726,7 @@ int gblock_conv1_f32(const float* x, const float* k1, const float* a1, const flo
   p.W = W;
   p.Cin = p.Nout = C;
   const dgmr::GBlockOperands o{x, k1, x, k1};
-  return static_cast<int>(dgmr::launch(true, o, p, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dgmr::launch(true, false, o, p, static_cast<cudaStream_t>(stream)));
 }
 
 // conv2: mid, x, out f32; k2 (2, Cout, 3, 3, Cin) and ksc (2, Cout, 1, 1, Cin)
@@ -648,7 +745,7 @@ int gblock_conv2_f32(const float* mid, const float* x, const float* k2, const fl
   p.Cin = Cin;
   p.Nout = Cout;
   const dgmr::GBlockOperands o{mid, k2, x, ksc};
-  return static_cast<int>(dgmr::launch(false, o, p, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dgmr::launch(false, false, o, p, static_cast<cudaStream_t>(stream)));
 }
 
 // bf16 variant: x, k1 bf16 with k1 in OHWI (C, 3, 3, C), affines f32, mid
@@ -668,7 +765,7 @@ int gblock_conv1_bf16(const uint16_t* x, const uint16_t* k1, const float* a1, co
   p.W = W;
   p.Cin = p.Nout = C;
   const dgmr::GBlockOperands o{x, k1, x, k1};
-  return static_cast<int>(dgmr::launch(true, o, p, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dgmr::launch(true, false, o, p, static_cast<cudaStream_t>(stream)));
 }
 
 // conv2: mid, x, k2 (Cout, 3, 3, Cin) and ksc (Cout, 1, 1, Cin) bf16, both
@@ -687,7 +784,81 @@ int gblock_conv2_bf16(const uint16_t* mid, const uint16_t* x, const uint16_t* k2
   p.Cin = Cin;
   p.Nout = Cout;
   const dgmr::GBlockOperands o{mid, k2, x, ksc};
-  return static_cast<int>(dgmr::launch(false, o, p, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dgmr::launch(false, false, o, p, static_cast<cudaStream_t>(stream)));
+}
+
+// The upsampling variant, both dtypes: x (N, H, W, Cin) at half the output's
+// resolution, read through a 2x nearest upsample in the kernels' loads; mid
+// (N, 2H, 2W, Cin) and out (N, 2H, 2W, Cout); the shortcut is the 1x1 conv.
+// Kernels, affines and alignment as in the GBlock entry points above.
+int upsample_gblock_a_f32(const float* x, const float* k1, const float* a1, const float* b1,
+                          const float* a2, const float* b2, float* mid, int N, int H, int W,
+                          int C, void* stream) {
+  dgmr::GBlockF32Args p{};
+  p.x = x;
+  p.a1 = a1;
+  p.b1 = b1;
+  p.a2 = a2;
+  p.b2 = b2;
+  p.dst = mid;
+  p.N = N;
+  p.H = 2 * H;
+  p.W = 2 * W;
+  p.Cin = p.Nout = C;
+  const dgmr::GBlockOperands o{x, k1, x, k1};
+  return static_cast<int>(dgmr::launch(true, true, o, p, static_cast<cudaStream_t>(stream)));
+}
+
+int upsample_gblock_b_f32(const float* mid, const float* x, const float* k2, const float* ksc,
+                          const float* b_out, float* out, int N, int H, int W, int Cin, int Cout,
+                          void* stream) {
+  dgmr::GBlockF32Args p{};
+  p.x = x;
+  p.b_out = b_out;
+  p.dst = out;
+  p.use_sc_conv = 1;
+  p.N = N;
+  p.H = 2 * H;
+  p.W = 2 * W;
+  p.Cin = Cin;
+  p.Nout = Cout;
+  const dgmr::GBlockOperands o{mid, k2, x, ksc};
+  return static_cast<int>(dgmr::launch(false, true, o, p, static_cast<cudaStream_t>(stream)));
+}
+
+int upsample_gblock_a_bf16(const uint16_t* x, const uint16_t* k1, const float* a1,
+                           const float* b1, const float* a2, const float* b2, uint16_t* mid,
+                           int N, int H, int W, int C, void* stream) {
+  dgmr::GBlockBfArgs p{};
+  p.x = x;
+  p.a1 = a1;
+  p.b1 = b1;
+  p.a2 = a2;
+  p.b2 = b2;
+  p.dst = mid;
+  p.N = N;
+  p.H = 2 * H;
+  p.W = 2 * W;
+  p.Cin = p.Nout = C;
+  const dgmr::GBlockOperands o{x, k1, x, k1};
+  return static_cast<int>(dgmr::launch(true, true, o, p, static_cast<cudaStream_t>(stream)));
+}
+
+int upsample_gblock_b_bf16(const uint16_t* mid, const uint16_t* x, const uint16_t* k2,
+                           const uint16_t* ksc, const float* b_out, uint16_t* out, int N, int H,
+                           int W, int Cin, int Cout, void* stream) {
+  dgmr::GBlockBfArgs p{};
+  p.x = x;
+  p.b_out = b_out;
+  p.dst = out;
+  p.use_sc_conv = 1;
+  p.N = N;
+  p.H = 2 * H;
+  p.W = 2 * W;
+  p.Cin = Cin;
+  p.Nout = Cout;
+  const dgmr::GBlockOperands o{mid, k2, x, ksc};
+  return static_cast<int>(dgmr::launch(false, true, o, p, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

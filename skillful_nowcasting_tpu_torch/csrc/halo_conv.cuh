@@ -46,6 +46,13 @@ constexpr int kPatch = 8;                              // output patch side (64 
 constexpr int kHalo = kPatch + 2;                      // halo box side
 constexpr int kBoxBytes = kHalo * kHalo * 128;         // 12800: 128 bytes a pixel
 constexpr int kBoxSlot = (kBoxBytes + 1023) / 1024 * 1024;
+// A GBlock's upsampling variant reads its input at half the output's
+// resolution through a 2x nearest upsample: the 10x10 halo of an 8x8 output
+// patch at (y0, x0) (both even) covers low-resolution rows and columns y0 / 2
+// - 1 .. y0 / 2 + 4, a 6x6 box, loaded from (x0 / 2 - 1, y0 / 2 - 1) so TMA
+// zero-fills the taps outside the image at either resolution.
+constexpr int kUpHalo = kPatch / 2 + 2;
+constexpr int kUpBoxBytes = kUpHalo * kUpHalo * 128;  // 4608
 
 // The 8x8 patches of an (N, H, W) activation, image-major.
 struct Patches {
@@ -66,9 +73,12 @@ struct Patches {
 // as a halo-box pixel at tap (0, 0), and which 8 channels of a k16 step it addresses.
 struct ALane {
   int p0, hi;
+  int py, px;  // the row as a patch pixel
   __device__ ALane(int warp, int lane) {
     const int r = 16 * warp + (lane & 15);
-    p0 = (r >> 3) * kHalo + (r & 7);
+    py = r >> 3;
+    px = r & 7;
+    p0 = py * kHalo + px;
     hi = lane >> 4;
   }
 };
@@ -78,6 +88,17 @@ struct ALane {
 __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t box, const ALane& l,
                                        int tap) {
   const int p = l.p0 + (tap / 3) * kHalo + tap % 3;
+  const uint32_t row = box + p * 128;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) ldmatrix_x4(a[s], row + (((2 * s + l.hi) ^ (p & 7)) << 4));
+}
+
+// The same from a low-resolution box (kUpHalo wide): halo pixel (fy, fx) of
+// the upsampled input is box pixel ((fy + 1) / 2, (fx + 1) / 2). Up to two
+// lanes of a matrix read one pixel, which the shared memory broadcasts.
+__device__ __forceinline__ void load_a_up(uint32_t (&a)[4][4], uint32_t box, const ALane& l,
+                                          int tap) {
+  const int p = ((l.py + tap / 3 + 1) >> 1) * kUpHalo + ((l.px + tap % 3 + 1) >> 1);
   const uint32_t row = box + p * 128;
 #pragma unroll
   for (int s = 0; s < 4; ++s) ldmatrix_x4(a[s], row + (((2 * s + l.hi) ^ (p & 7)) << 4));
@@ -196,6 +217,12 @@ struct F32Group {
   }
 };
 
+// Which groups' boxes are low-resolution ones (kUpHalo wide, read through
+// the 2x upsample): none but in a GBlock's upsampling variant.
+struct FullRes {
+  __device__ constexpr bool operator()(const F32Group&) const { return false; }
+};
+
 // A conv block: two consumer warpgroups and a producer warpgroup.
 constexpr int kConsumers = 2;  // warpgroups, one 8x8 patch each
 constexpr int kConvThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
@@ -253,17 +280,18 @@ struct F32Pipe {
   // Producer (one thread): the TMA loads of groups [g0, g1) for both
   // consumers, but the B pairs of the first `skip` groups (already issued
   // ahead, as they do not depend on the boxes' data). load_box(w, dst, bar,
-  // group) issues consumer w's halo box, load_b(dst, bar, group) the B pair.
-  template <int BN, class LoadBox, class LoadB>
+  // group) issues consumer w's halo box, load_b(dst, bar, group) the B pair;
+  // low_res(group) says the box is a low-resolution one.
+  template <int BN, class LoadBox, class LoadB, class LowRes = FullRes>
   __device__ void produce(Ring& a, Ring& b, int g0, int g1, int g3, int skip,
-                          LoadBox&& load_box, LoadB&& load_b) const {
+                          LoadBox&& load_box, LoadB&& load_b, LowRes low_res = {}) const {
     for (int g = g0; g < g1; ++g) {
       const F32Group grp(g, g0, g1, g3);
       if (grp.first) {
         for (int w = 0; w < kConsumers; ++w) {
           const int i = w * kAStages + a.slot;
           mbar_wait(&a_empty[i], a.phase ^ 1);
-          mbar_expect_tx(&a_full[i], kBoxBytes);
+          mbar_expect_tx(&a_full[i], low_res(grp) ? kUpBoxBytes : kBoxBytes);
           load_box(w, boxes + i * kBoxSlot, &a_full[i], grp);
         }
         a.next(kAStages);
@@ -275,11 +303,11 @@ struct F32Pipe {
   // Consumer warpgroup wg: acc = its patch's sum over groups [g0, g1).
   // on_box(box, group) runs on each landed box, by the warpgroup's 128
   // threads, before any gather from it (a GBlock's conv1 affine); it returns
-  // whether it wrote the box.
-  template <int BN, class OnBox>
+  // whether it wrote the box. low_res(group) as in produce.
+  template <int BN, class OnBox, class LowRes = FullRes>
   __device__ void consume(float (&acc)[BN / 2], Ring& a, Ring& b, Ring& freed, int wg,
                           const ALane& al, int lane, int g0, int g1, int g3,
-                          OnBox&& on_box) const {
+                          OnBox&& on_box, LowRes low_res = {}) const {
     const uint32_t boxes_u = smem_u32(boxes), ring_u = smem_u32(ring);
     auto gather = [&](int k, uint32_t(&fr)[4][4]) {
       const F32Group grp(g0 + k, g0, g1, g3);
@@ -292,7 +320,10 @@ struct F32Pipe {
         }
       }
       mbar_wait(&b_full[b.slot], b.phase);
-      load_a(fr, boxes_u + i * kBoxSlot, al, grp.tap);  // f32: 4 k8 steps
+      if (low_res(grp))  // f32: 4 k8 steps
+        load_a_up(fr, boxes_u + i * kBoxSlot, al, grp.tap);
+      else
+        load_a(fr, boxes_u + i * kBoxSlot, al, grp.tap);
       if (grp.last) {  // its last gather: the box is free
         __syncwarp();
         if (lane == 0) mbar_arrive(&a_empty[i]);
@@ -324,13 +355,13 @@ inline int ring_stages(int fixed, int stage) {
 }
 
 // NHWC activation (bf16: C % 8 == 0; f32: C % 4 == 0) as a TMA map with the
-// 10x10 halo box of one chunk.
+// 10x10 halo box of one chunk (or the side x side box of a low-resolution input).
 inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int n,
-                            int h, int w, int c) {
+                            int h, int w, int c, int side = kHalo) {
   const uint64_t e = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const uint64_t dims[4] = {(uint64_t)c, (uint64_t)w, (uint64_t)h, (uint64_t)n};
   const uint64_t strides[3] = {e * c, e * c * w, e * c * w * h};
-  const uint32_t box[4] = {(uint32_t)(128 / e), kHalo, kHalo, 1};
+  const uint32_t box[4] = {(uint32_t)(128 / e), (uint32_t)side, (uint32_t)side, 1};
   return tensor_map(map, type, ptr, 4, dims, strides, box);
 }
 

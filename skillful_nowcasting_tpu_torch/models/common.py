@@ -42,6 +42,7 @@ from ..ops import (
     fold_gblock_variables,
     gblock_fused,
     space_to_depth,
+    upsample_gblock_fused,
     upsample_nearest_2x,
 )
 from ..profiling import span
@@ -103,7 +104,15 @@ class GBlock(nn.Module):
 
 
 class UpsampleGBlock(nn.Module):
-    """Residual generator block with 2x nearest upsampling; its 1x1 shortcut always applies."""
+    """Residual generator block with 2x nearest upsampling; its 1x1 shortcut always applies.
+
+    Eval runs folded, as :class:`GBlock` does, through
+    :func:`~skillful_nowcasting_tpu_torch.ops.upsample_gblock_fused`: the
+    upsample commutes with the folded affines, the ReLU and the 1x1
+    shortcut, so the block is a GBlock with the shortcut on the upsampled
+    input, which the kernels read at half resolution. Train mode and a space
+    layout run the plain layers.
+    """
 
     def __init__(
         self,
@@ -128,10 +137,18 @@ class UpsampleGBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, steps: Optional[int] = None, space=None) -> torch.Tensor:
         with span("dgmr.upsample_gblock", device=x):
+            if not self.training and space is None:
+                return self._fused(x)
             sc = self.conv_1x1(upsample_nearest_2x(x), steps, space)
             y = upsample_nearest_2x(torch.relu(self.bn1(x, steps)))
             y = torch.relu(self.bn2(self.first_conv_3x3(y, steps, space), steps))
             return self.last_conv_3x3(y, steps, space) + sc
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        with span("dgmr.derive.upsample_gblock", device=x):
+            *folded, _ = fold_gblock_variables(self, x.dtype, shortcut=True)
+        out = upsample_gblock_fused(x.permute(0, 2, 3, 1).contiguous(), *folded)
+        return out.permute(0, 3, 1, 2)
 
 
 class DBlock(nn.Module):

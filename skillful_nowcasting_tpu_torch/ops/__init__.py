@@ -2,7 +2,13 @@
 
 from .attention import attention_fixed, attention_torch_compat
 from .conv import conv2d, conv3d, dense
-from .gblock_fused import fold_gblock_variables, gblock_fused, gblock_fused_reference
+from .gblock_fused import (
+    fold_gblock_variables,
+    gblock_fused,
+    gblock_fused_reference,
+    upsample_gblock_fused,
+    upsample_gblock_fused_reference,
+)
 from .gru_rollout import convgru_rollout, convgru_rollout_reference
 from .norm import BatchNorm1d, BatchNorm2d
 from .pixel import depth_to_space, space_to_depth
@@ -25,5 +31,7 @@ __all__ = [
     "gblock_fused",
     "gblock_fused_reference",
     "space_to_depth",
+    "upsample_gblock_fused",
+    "upsample_gblock_fused_reference",
     "upsample_nearest_2x",
 ]

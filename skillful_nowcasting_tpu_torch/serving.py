@@ -4,8 +4,8 @@ Port of ``skillful_nowcasting_tpu/serving.py``. One ``.dgmrx`` file (a zip)
 carries what a serving host needs:
 
 * ``program.pt2`` -- the exported program (``torch.export.save``), in which
-  both hand-written kernels are the custom ops ``dgmr::convgru_rollout`` and
-  ``dgmr::gblock_fused``;
+  the hand-written kernels are the custom ops ``dgmr::convgru_rollout``,
+  ``dgmr::gblock_fused`` and ``dgmr::upsample_gblock_fused``;
 * ``weights.npz`` -- the generator's parameters and buffers, by position
   (``arr_0``, ``arr_1``, ...), in the order of ``meta["param_names"]``;
 * ``meta.json`` -- config, shapes, ensemble size, compute dtype, device type,
@@ -56,7 +56,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import ops  # noqa: F401  (registers dgmr::convgru_rollout / dgmr::gblock_fused)
+from . import ops  # noqa: F401  (registers the dgmr:: custom ops)
 
 ARTIFACT_VERSION = 1
 DESIGN = (

@@ -67,6 +67,9 @@ BLOCKS = [
     ("gblock_1x1", lambda: models.GBlock(8, 12), lambda: jmodels.GBlock(8, 12), (3, 8, 6, 8)),
     ("upsample_gblock", lambda: models.UpsampleGBlock(8, 4),
      lambda: jmodels.UpsampleGBlock(8, 4), (2, 6, 6, 8)),
+    # Equal widths: the 1x1 shortcut still applies (the eval route forces it in the fold).
+    ("upsample_gblock_same", lambda: models.UpsampleGBlock(8, 8),
+     lambda: jmodels.UpsampleGBlock(8, 8), (2, 6, 6, 8)),
     ("dblock_1x1", lambda: models.DBlock(4, 8), lambda: jmodels.DBlock(4, 8), (2, 8, 8, 4)),
     # An identity shortcut needs keep_same_output (the reference never pools x1).
     ("dblock_identity", lambda: models.DBlock(8, 8, keep_same_output=True),

@@ -2,8 +2,9 @@
 
 Both kernels in f32 (3xTF32 wgmma + TMA; tolerance 1e-5 at small widths,
 1e-4 at the main path's) and in bf16 (2^-7 of the largest plain output,
-one bf16 ulp there), a tiny serving artifact on the card, and the losses and
-``CoordConv`` on the card against the same on the CPU.
+one bf16 ulp there), the GBlock kernels' upsampling variant (the eval
+UpsampleGBlock) the same way, a tiny serving artifact on the card, and the
+losses and ``CoordConv`` on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips where CUDA is absent. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -13,6 +14,7 @@ without them (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 """
 
 import ctypes
+import hashlib
 
 import numpy as np
 import pytest
@@ -30,6 +32,8 @@ from skillful_nowcasting_tpu_torch.ops import (
     convgru_rollout_reference,
     gblock_fused,
     gblock_fused_reference,
+    upsample_gblock_fused,
+    upsample_gblock_fused_reference,
 )
 from skillful_nowcasting_tpu_torch.utils import random_fill
 
@@ -124,12 +128,104 @@ def test_gblock_fused_kernel_at_the_tile_batch(dev, hw, cin, cout):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+# The eval UpsampleGBlock on the GBlock kernels' upsampling variant: x at half the output's
+# resolution, read through the 2x upsample in the kernels' loads. Ragged shapes (odd channel
+# counts, an output side off the 8x8 patches, Cin == Cout with the 1x1 shortcut forced), then the
+# Sampler's four levels (output side 16 / 32 / 64 / 128, Cin 768 / 384 / 192 / 96, Cout = Cin / 2)
+# at the request batch (N = 36) and the tile batch (N = 288), f32 within the main path's 1e-4,
+# bf16 within one bf16 ulp of the largest output; the same bits on a second call.
+UPSAMPLE_LEVELS = [(8, 768, 384), (16, 384, 192), (32, 192, 96), (64, 96, 48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(2, 5, 7, 6, 6), (3, 4, 9, 20, 12), (2, 3, 3, 70, 70)]
+    + [(n, hw, hw, cin, cout) for n in (36, 288) for hw, cin, cout in UPSAMPLE_LEVELS],
+)
+def test_upsample_gblock_fused_kernel_matches_plain(dev, dtype, n, h, w, cin, cout):
+    args = gblock_inputs(np.random.default_rng(20), n, h, w, cin, cout, dev)[:-1]
+    args = [a.to(dtype) for a in args[:4]] + args[4:]  # the affines stay f32
+
+    def counts():
+        return tuple(getattr(f, a) for f in (upsample_gblock_fused, gblock_fused)
+                     for a in ("launches", "launches_bf16"))
+
+    before = counts()
+    got = upsample_gblock_fused(*args)
+    f32 = dtype == torch.float32
+    assert tuple(a - b for a, b in zip(counts(), before)) == ((2, 0) if f32 else (0, 2)) + (0, 0)
+    assert got.shape == (n, 2 * h, 2 * w, cout) and got.dtype == dtype and got.is_contiguous()
+    want = upsample_gblock_fused_reference(*args)
+    torch.cuda.synchronize()
+    if f32:
+        assert (got - want).abs().max().item() <= (1e-5 if n < 36 else 1e-4)
+    else:
+        assert bf16_rel_err(got, want) <= 2.0**-7
+    assert torch.equal(got, upsample_gblock_fused(*args))
+
+
+def test_upsample_gblock_entry_points_refuse_what_they_cannot_run(dev):
+    """Channels off TMA's 16-byte strides and a pointer off its 16-byte alignment, both dtypes."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    gb = gblock_inputs(np.random.default_rng(21), 2, 4, 4, 16, 16, dev)
+    x = gb[0]
+    for suffix, t in (("f32", x), ("bf16", x.bfloat16())):
+        with pytest.raises(RuntimeError, match=f"upsample_gblock_a_{suffix}: CUDA call failed"):
+            _build.call(f"upsample_gblock_a_{suffix}", *[ptr(t)] * 2, *[ptr(gb[4])] * 4, ptr(t),
+                        2, 4, 4, 6, stream)
+        with pytest.raises(RuntimeError, match=f"upsample_gblock_b_{suffix}: CUDA call failed"):
+            _build.call(f"upsample_gblock_b_{suffix}", ptr(t.flatten()[1:]), *[ptr(t)] * 3,
+                        ptr(gb[8]), ptr(t), 2, 4, 4, 16, 16, stream)
+
+
 def test_kernels_are_deterministic(dev):
     """Split-K sums in a fixed order with no float atomics: the same inputs give the same bits."""
     gru = gru_inputs(np.random.default_rng(3), 1, 1, 8, 384, dev)
     assert torch.equal(convgru_rollout(*gru, n_steps=3), convgru_rollout(*gru, n_steps=3))
     gb = gblock_inputs(np.random.default_rng(4), 4, 8, 8, 128, 96, dev)
     assert torch.equal(gblock_fused(*gb), gblock_fused(*gb))
+
+
+# sha256 of the GBlock kernels' outputs on test_gblock_fused_kernel_at_the_tile_batch's inputs
+# (f32) and their bf16 casts, as the kernels gave them before they gained the upsampling variant
+# (H100, this repository's nvcc flags): the GBlock instantiations of the shared bodies keep their
+# bits. A new toolchain may change them; then this test says so first.
+GBLOCK_DIGESTS = {
+    ("torch.float32", 8, 768, 768):
+        "3d2bcc81de99de2641e27a93fed2f4ca403dc910c8774d5473ddd48181967832",
+    ("torch.float32", 16, 384, 384):
+        "91f125a8c7715d76d33d994ff0ab4a954c7c66a8c479393d9be7f18b8188a2cf",
+    ("torch.float32", 32, 192, 192):
+        "85a60afda1207f77f130e5a2da174c983b79134e3756cb891e485d62ab592e8b",
+    ("torch.float32", 64, 96, 96):
+        "b6f00b1d2f4d01d640596dcc81c676f23bf18c29948cc3f34e20552dbfdbed04",
+    ("torch.float32", 16, 384, 192):
+        "eab5c2241c7568940f688909fdc3aa341cb52c7c03338c09dc08b5d5219aeab9",
+    ("torch.bfloat16", 8, 768, 768):
+        "f14fe4a74efe9c89d64e974c87a36369f54a18e2cd2cc282c82cf48abb9a9ac0",
+    ("torch.bfloat16", 16, 384, 384):
+        "2f427290d673c3b4aaa387d0631147f4e1cf42f44f15b79b165f7abdd200002c",
+    ("torch.bfloat16", 32, 192, 192):
+        "c0f754875f15ba3a4c9e54f711b6731ae51f0a735cdc3ec9e99d364dfa333944",
+    ("torch.bfloat16", 64, 96, 96):
+        "6351432079af5f1d87d90ebc1efc404b0ffeb4dc506eb502dfc04db378855f20",
+    ("torch.bfloat16", 16, 384, 192):
+        "da91dde879862adf96052529a5c3239b5c726474123dc38472ba5d2754aa12a6",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "hw,cin,cout", [(8, 768, 768), (16, 384, 384), (32, 192, 192), (64, 96, 96), (16, 384, 192)]
+)
+def test_gblock_kernels_keep_their_bits(dev, dtype, hw, cin, cout):
+    args = gblock_inputs(np.random.default_rng(6), 288, hw, hw, cin, cout, dev)
+    args = [a.to(dtype) for a in args[:4]] + args[4:]
+    got = gblock_fused(*args)
+    digest = hashlib.sha256(got.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    assert digest == GBLOCK_DIGESTS[(str(dtype), hw, cin, cout)]
 
 
 def test_kernel_wrappers_refuse_bad_input(dev):
@@ -275,9 +371,11 @@ def test_tiny_dgmr_on_card_matches_cpu(dev):
     with torch.no_grad():
         want = model(x, z=z)
         gru, gb = convgru_rollout.launches, gblock_fused.launches
+        up = upsample_gblock_fused.launches
         got = model.to(dev)(x.to(dev), z=z.to(dev)).cpu()
     assert convgru_rollout.launches - gru == 4  # one launch per ConvGRU level
     assert gblock_fused.launches - gb == 4 * 2  # GBlocks x launches per GBlock
+    assert upsample_gblock_fused.launches - up == 4 * 2  # UpsampleGBlocks, the same
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -308,10 +406,11 @@ def test_train_step_on_card_launches_no_kernel(dev):
     """Train mode takes the plain paths (the kernels have no backward); state stays on the card."""
     state, x, y = tiny_train_state(dev)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    gru, gb = convgru_rollout.launches, gblock_fused.launches
+    gru, gb, up = convgru_rollout.launches, gblock_fused.launches, upsample_gblock_fused.launches
     metrics = training.make_train_step(state.model)(state, x, y, torch.Generator().manual_seed(3))
     torch.cuda.synchronize()
-    assert (convgru_rollout.launches, gblock_fused.launches) == (gru, gb)
+    assert (convgru_rollout.launches, gblock_fused.launches,
+            upsample_gblock_fused.launches) == (gru, gb, up)
     assert len(metrics) == 6 and state.step == 1
     for name, value in metrics.items():
         assert value.device.type == "cuda" and bool(torch.isfinite(value)), name
@@ -325,12 +424,13 @@ def test_train_step_on_card_launches_no_kernel(dev):
 
 def test_eval_step_launches_both_kernels(dev):
     state, x, y = tiny_train_state(dev)
-    gru, gb = convgru_rollout.launches, gblock_fused.launches
+    gru, gb, up = convgru_rollout.launches, gblock_fused.launches, upsample_gblock_fused.launches
     metrics = training.make_eval_step(state.model)(state, x, y, torch.Generator().manual_seed(4))
     torch.cuda.synchronize()
     forwards = 2 + TRAIN_TINY["generation_steps"]
     assert convgru_rollout.launches - gru == 4 * forwards
     assert gblock_fused.launches - gb == 8 * forwards
+    assert upsample_gblock_fused.launches - up == 8 * forwards
     assert set(metrics) == {"val/d_loss", "val/g_loss", "val/grid_loss", "val/d_loss_first"}
     for name, value in metrics.items():
         assert value.device.type == "cuda" and bool(torch.isfinite(value)), name
@@ -453,11 +553,13 @@ def test_bf16_request_runs_only_bf16_kernels(dev):
     model = random_fill(DGMR(**TINY).eval(), torch.Generator().manual_seed(0))
     x = torch.rand((2, 4, 1, 64, 64), generator=torch.Generator().manual_seed(1))
     counts = lambda: (convgru_rollout.launches, gblock_fused.launches,  # noqa: E731
-                      convgru_rollout.launches_bf16, gblock_fused.launches_bf16)
+                      upsample_gblock_fused.launches, convgru_rollout.launches_bf16,
+                      gblock_fused.launches_bf16, upsample_gblock_fused.launches_bf16)
     before = counts()
     out = make_generate(model, num_samples=2)(x.bfloat16(), torch.Generator().manual_seed(2))
     assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
-    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 2 * 4, 2 * 4 * 2)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 0, 2 * 4, 2 * 4 * 2,
+                                                                2 * 4 * 2)
     ref = make_generate(model, num_samples=2)(x, torch.Generator().manual_seed(2))
     assert (out.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-3) < 0.15
 

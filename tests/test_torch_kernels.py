@@ -22,6 +22,7 @@ from skillful_nowcasting_tpu_torch.ops import (
     fold_gblock_variables,
     gblock_fused,
     gblock_fused_reference,
+    upsample_gblock_fused,
 )
 from skillful_nowcasting_tpu_torch.ops import gru_rollout as gru_rollout_mod
 from skillful_nowcasting_tpu_torch.ops import tma
@@ -226,12 +227,14 @@ def test_3xtf32_dot_at_k6912_stays_inside_the_bar():
     assert np.abs(one - want).max() > 10 * err
 
 
-@pytest.mark.parametrize("fn,n_args", [(convgru_rollout, 5), (gblock_fused, 9)])
+@pytest.mark.parametrize(
+    "fn,n_args", [(convgru_rollout, 5), (gblock_fused, 9), (upsample_gblock_fused, 9)]
+)
 def test_wrappers_refuse_non_cpu_tensors_without_a_kernel(fn, n_args):
     """Only CPU tensors take the plain version; any other device needs the kernel."""
     meta = [torch.empty(1, 1, 1, 1, 3, device="meta")] * n_args
     with pytest.raises(ValueError, match="CUDA device"):
-        fn(*meta) if fn is convgru_rollout else fn(*meta, False)
+        fn(*meta, False) if fn is gblock_fused else fn(*meta)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):

@@ -4,10 +4,10 @@ A tiny eval DGMR on the CPU (no JAX): nothing is recorded and
 ``record_function`` is never called while neither a profiler nor
 ``profiling.record()`` runs; under ``record()`` the spans nest as the
 layers do and one request id covers a ``generate`` call; the derivation
-spans count the model's spectral norms, GBlocks and rollouts; under a CPU
-``torch.profiler`` every span is also one of its records, on the same
-clock; the log is a bounded ring; and the artifact still exports with
-spans inside its forward.
+spans count the model's spectral norms, GBlocks, UpsampleGBlocks and
+rollouts; under a CPU ``torch.profiler`` every span is also one of its
+records, on the same clock; the log is a bounded ring; and the artifact
+still exports with spans inside its forward.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from skillful_nowcasting_tpu_torch import DGMR, profiling, serving
 from skillful_nowcasting_tpu_torch.inference import make_generate
 from skillful_nowcasting_tpu_torch.layers.convgru import ConvGRU
-from skillful_nowcasting_tpu_torch.models.common import GBlock
+from skillful_nowcasting_tpu_torch.models.common import GBlock, UpsampleGBlock
 from skillful_nowcasting_tpu_torch.ops.spectral_norm import SpectralNorm
 
 TINY = dict(forecast_steps=2, output_shape=64, latent_channels=256, context_channels=32,
@@ -92,7 +92,8 @@ def test_spans_nest_and_share_a_request(model, x):
     want = {"dgmr.forward": ("dgmr.generate", None), "dgmr.context": ("dgmr.forward",),
             "dgmr.latent": ("dgmr.forward",), "dgmr.sampler": ("dgmr.forward",),
             "dgmr.convgru": ("dgmr.sampler",), "dgmr.upsample_gblock": ("dgmr.sampler",),
-            "dgmr.derive.rollout": ("dgmr.convgru",), "dgmr.derive.gblock": ("dgmr.sampler",)}
+            "dgmr.derive.rollout": ("dgmr.convgru",), "dgmr.derive.gblock": ("dgmr.sampler",),
+            "dgmr.derive.upsample_gblock": ("dgmr.upsample_gblock",)}
     for s in spans:
         p = up[s["id"]]
         assert s["request"] == root(s)["request"]
@@ -116,6 +117,8 @@ def test_derive_spans_count_the_models_derivations(model, x):
             for m in stack.modules()]
     assert names.count("dgmr.derive.sn") == sum(isinstance(m, SpectralNorm) for m in mods) == 58
     assert names.count("dgmr.derive.gblock") == sum(isinstance(m, GBlock) for m in mods) == 4
+    assert names.count("dgmr.derive.upsample_gblock") == sum(
+        isinstance(m, UpsampleGBlock) for m in mods) == 4
     assert names.count("dgmr.derive.rollout") == sum(isinstance(m, ConvGRU) for m in mods) == 4
 
 

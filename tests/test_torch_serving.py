@@ -8,7 +8,7 @@ JAX's own latents for the same key (threefry and Philox never agree, so the
 latents are recovered from the JAX key and replace the artifact's draw).
 Weights are program arguments; the latent-RNG record and the device type are
 enforced; a bf16 artifact keeps an f32 interface within 0.15 of the f32
-scale (the JAX suite's bf16 bar); both custom ops pass
+scale (the JAX suite's bf16 bar); the custom ops pass
 ``torch.library.opcheck``; serving an artifact imports no model code.
 
 The JAX reference (variables, batch, latents, nowcast) is computed once per
@@ -201,13 +201,14 @@ def _op_args(dtype):
     gblock = (r(2, 5, 5, cin), r(3, 3, cin, cin, scale=0.2), r(3, 3, cin, cout, scale=0.2),
               r(1, 1, cin, cout, scale=0.3), r(cin, dt=torch.float32), r(cin, dt=torch.float32),
               r(cin, dt=torch.float32), r(cin, dt=torch.float32), r(cout, dt=torch.float32), True)
-    return {"convgru_rollout": rollout, "gblock_fused": gblock}
+    upsample = (r(2, 3, 4, cin), *gblock[1:-1])
+    return {"convgru_rollout": rollout, "gblock_fused": gblock, "upsample_gblock_fused": upsample}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["convgru_rollout", "gblock_fused"])
+@pytest.mark.parametrize("op", ["convgru_rollout", "gblock_fused", "upsample_gblock_fused"])
 def test_custom_ops_pass_opcheck(op, dtype):
-    """Schema, fake (meta) implementation and AOT dispatch of both custom ops."""
+    """Schema, fake (meta) implementation and AOT dispatch of the custom ops."""
     torch.library.opcheck(getattr(torch.ops.dgmr, op).default, _op_args(dtype)[op])
 
 
